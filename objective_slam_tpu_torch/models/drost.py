@@ -1,0 +1,376 @@
+"""Drost-2010 PPF 6-DoF matcher — the port of
+``objective_slam_tpu.models.drost`` (drost.py:42-685).
+
+  scene points ──pairwise PPF keys + α_s──┐
+                                          ├─ block-expansion voting ─ dense
+  ModelDescription (key table + α_m) ─────┘   accumulator (R, n_m, 32)
+                top-K + relative threshold    (model.cu:148-170)
+                batched pose reconstruction   (kernel.cu:605-645)
+                dense pose clustering         (kernel.cu:647-763)
+                argmax winner, optional ICP   (model.cu:293-295)
+
+Engines: "fast" (the block engine, whose tally is kernel K1) and
+"reference" (the readable engine). Everything runs eagerly on the device
+of the model description; numpy inputs are moved there.
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP item: engine="correlation" (queue 1 item 13), use_fnv_keys=True
+(item 12), rescore_poses=True (item 7), and models over the block
+budgets (item 11, kernel K2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from objective_slam_tpu_torch._common import as_tensor, default_device, \
+    to_numpy
+from objective_slam_tpu_torch.config import PPFConfig
+from objective_slam_tpu_torch.ops import (clustering, icp, ppf as ppf_ops,
+                                          transforms as tr, voting,
+                                          voting_block, voting_fast)
+
+_ENGINES = ("fast", "reference")
+
+
+def _check_config(config: PPFConfig) -> None:
+    if config.engine == "correlation":
+        raise NotImplementedError(
+            "engine='correlation' is not ported yet (ROADMAP queue 1 item 13)")
+    if config.engine not in _ENGINES:
+        raise ValueError(f"unknown engine {config.engine!r}; the port "
+                         f"serves {_ENGINES}")
+    if config.use_fnv_keys:
+        raise NotImplementedError(
+            "use_fnv_keys=True is not ported yet (ROADMAP queue 1 item 12)")
+    if config.rescore_poses:
+        raise NotImplementedError(
+            "rescore_poses=True is not ported yet (ROADMAP queue 1 item 7)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDescription:
+    """Scene-independent model description (drost.py:42-72), on one
+    device. d_dist is the float32 value as a Python float."""
+    points: torch.Tensor        # (n_m, 3) float32
+    normals: torch.Tensor       # (n_m, 3) float32
+    beta: torch.Tensor          # (n_m,) canonical Roty angle per point
+    gamma: torch.Tensor         # (n_m,) canonical Rotz angle per point
+    vote_weights: torch.Tensor  # (n_m,) per-point vote weights
+    table: voting.KeyTable
+    d_dist: float
+    fast_tables: voting_fast.FastModelTables | None
+    n_points: int
+    num_keys: int
+    max_dist_bin: int
+    diameter: float
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+
+def build_model_description(points, normals, config: PPFConfig = PPFConfig(),
+                            d_dist: float | None = None, vote_weights=None,
+                            device=None) -> ModelDescription:
+    """Build the model description (Model ctor, model.cu:43-82).
+
+    d_dist defaults to tau_d · (max bbox edge) (alignment.cpp:246-253).
+    The description lives on `device`: by default the device of `points`
+    when it is a tensor, else cuda when present, else cpu."""
+    _check_config(config)
+    if device is None:
+        device = points.device if isinstance(points, torch.Tensor) \
+            else default_device()
+    pts_np = to_numpy(points).astype(np.float32)
+    bbox = pts_np.max(axis=0) - pts_np.min(axis=0)
+    diameter = float(bbox.max())
+    if d_dist is None:
+        d_dist = config.tau_d * diameter
+    d_dist = float(d_dist)
+    max_dist_bin = int(np.linalg.norm(bbox) / d_dist) + 1
+    num_keys = ppf_ops.num_keys(max_dist_bin)
+
+    pts = as_tensor(pts_np, device)
+    nrm = as_tensor(normals, device)
+    n = pts.shape[0]
+    keys, alpha = ppf_ops.pairwise_ppf_keys(pts, nrm, d_dist, config.d_angle,
+                                            max_dist_bin)
+    table = voting.build_key_table(keys, alpha, num_keys)
+    beta, gamma = tr.canonical_angles(pts, nrm)
+    if vote_weights is None:
+        vote_weights = torch.ones(n, device=device)
+    return ModelDescription(
+        points=pts, normals=nrm, beta=beta, gamma=gamma,
+        vote_weights=as_tensor(vote_weights, device),
+        table=table, d_dist=float(np.float32(d_dist)),
+        fast_tables=(voting_fast.build_fast_tables(table)
+                     if config.engine == "fast" else None),
+        n_points=n, num_keys=num_keys, max_dist_bin=max_dist_bin,
+        diameter=diameter)
+
+
+class MatchResult(NamedTuple):
+    """Result of matching one model against one scene (drost.py:147-164)."""
+    pose: torch.Tensor              # (4, 4) winning transform
+    cluster_votes: torch.Tensor     # () float32 winner's clustered count
+    num_votes: torch.Tensor         # () int32 total Hough votes cast
+    overflowed: torch.Tensor        # () bool vote capacity exceeded
+    poses: torch.Tensor             # (max_poses, 4, 4) candidate poses
+    pose_votes: torch.Tensor        # (max_poses,) raw vote counts (desc)
+    pose_keep: torch.Tensor         # (max_poses,) threshold survivors
+    clustered_counts: torch.Tensor  # (max_poses,) clustered counts
+    clustered_translations: torch.Tensor  # (max_poses, 3)
+    accumulator: torch.Tensor       # (R, n_m, 32) dense tallies
+    topk_saturated: torch.Tensor    # () bool: raise max_poses
+
+
+def _scene_inputs(model, scene_points, scene_normals, ref_point_df):
+    pts = as_tensor(scene_points, model.device)
+    nrm = as_tensor(scene_normals, model.device)
+    ref_idx = torch.arange(0, pts.shape[0], ref_point_df, device=pts.device)
+    return pts, nrm, ref_idx
+
+
+def _match_core(model: ModelDescription, scene_points, scene_normals, *,
+                ref_point_df: int, vote_cap: int, config: PPFConfig,
+                icp_points=None, icp_normals=None,
+                seg_cap: int | None = None) -> MatchResult:
+    """The matching pipeline at fixed capacities (drost.py:180-310)."""
+    _check_config(config)
+    scene_points, scene_normals, ref_idx = _scene_inputs(
+        model, scene_points, scene_normals, ref_point_df)
+    keys, alpha_s = ppf_ops.pairwise_ppf_keys(
+        scene_points, scene_normals, model.d_dist, config.d_angle,
+        model.max_dist_bin, ref_indices=ref_idx)
+    s_ref_pts = scene_points[ref_idx]
+    s_beta, s_gamma = tr.canonical_angles(s_ref_pts, scene_normals[ref_idx])
+
+    if config.engine == "fast":
+        if model.fast_tables is None:
+            raise ValueError("engine='fast' but model.fast_tables is None — "
+                             "rebuild tables for this engine")
+        votes = voting_block.cast_votes_block(
+            keys, alpha_s, model.fast_tables.block, model.n_points,
+            config.d_angle, vote_cap, seg_cap=seg_cap)
+    else:
+        votes = voting.cast_votes(keys, alpha_s, model.table, model.n_points,
+                                  config.d_angle, vote_cap)
+    top = voting.top_votes(votes.accumulator, config.vote_count_threshold,
+                           config.max_poses)
+
+    m_idx = top.model_idx.to(torch.int64)
+    r_idx = top.ref_idx.to(torch.int64)
+    poses = tr.pose_from_vote(
+        top.alpha_idx, model.points[m_idx], model.beta[m_idx],
+        model.gamma[m_idx], s_ref_pts[r_idx], s_beta[r_idx], s_gamma[r_idx],
+        config.d_angle)
+    weighted = top.counts.to(torch.float32) * model.vote_weights[m_idx]
+
+    cl = clustering.cluster_poses_dense(
+        poses[:, :3, 3], tr.hrotmat2quat(poses), weighted, top.keep,
+        model.d_dist, config.rot_thresh,
+        include_center_cell=config.cluster_center_cell,
+        use_l1_norm=config.use_l1_norm,
+        use_averaged_clusters=config.use_averaged_clusters)
+    win = torch.argmax(cl.vote_counts)
+    pose = poses[win].clone()
+    pose[:3, 3] = cl.translations[win]
+
+    if config.refine_icp:
+        # Voxel-pad sentinel points sit ~1e7 away and never fall inside the
+        # rejection radius, so no validity mask is needed.
+        if icp_points is None:
+            icp_target, icp_nrm = scene_points, scene_normals
+        else:
+            icp_target = as_tensor(icp_points, model.device)
+            icp_nrm = (None if icp_normals is None
+                       else as_tensor(icp_normals, model.device))
+        pose = icp.refine_pose(
+            model.points, icp_target, pose,
+            iterations=config.icp_iterations,
+            max_dist=config.icp_max_dist_factor * model.d_dist,
+            scene_normals=icp_nrm, model_normals=model.normals,
+            point_to_plane=config.icp_point_to_plane).pose
+
+    return MatchResult(
+        pose=pose, cluster_votes=cl.vote_counts[win],
+        num_votes=votes.num_votes, overflowed=votes.overflowed,
+        poses=poses, pose_votes=top.counts, pose_keep=top.keep,
+        clustered_counts=cl.vote_counts,
+        clustered_translations=cl.translations,
+        accumulator=votes.accumulator, topk_saturated=top.saturated)
+
+
+def _count_votes(model, scene_points, scene_normals, ref_point_df,
+                 d_angle) -> tuple[int, int, int]:
+    """Exact (total votes, block-engine vote rows, nonzero scene-pair
+    segments) — the count pass that sizes the buffers (drost.py:326-370);
+    int32 sums as in the JAX package."""
+    pts, nrm, ref_idx = _scene_inputs(model, scene_points, scene_normals,
+                                      ref_point_df)
+    keys, _ = ppf_ops.pairwise_ppf_keys(pts, nrm, model.d_dist, d_angle,
+                                        model.max_dist_bin,
+                                        ref_indices=ref_idx)
+    valid = keys != ppf_ops.INVALID_KEY
+    safe = torch.where(valid, keys, 0).to(torch.int64)
+    cnt = torch.where(valid, model.table.counts[safe], 0)
+    totals = torch.stack([
+        torch.sum(cnt, dtype=torch.int32),
+        torch.sum(voting_block.rows_for_counts(cnt), dtype=torch.int32),
+        torch.sum(cnt > 0, dtype=torch.int32)]).tolist()
+    return int(totals[0]), int(totals[1]), int(totals[2])
+
+
+def _next_cap(x: int) -> int:
+    """Round a capacity up to the next {1, 1.25, 1.5, 1.75}·2^k bucket
+    (drost.py:373-385)."""
+    x = max(int(x), 1024)
+    k = (x - 1).bit_length() - 1
+    base = 1 << k
+    for mult in (1.25, 1.5, 1.75, 2.0):
+        cap = int(base * mult)
+        if cap >= x:
+            return cap
+    return base * 2
+
+
+class MatchCaps(NamedTuple):
+    """Capacity state of one sized match (drost.py:388-397); runs_cap is
+    always None here (it belongs to the correlation engine)."""
+    vote_cap: int
+    seg_cap: int | None
+    runs_cap: int | None
+    max_poses: int
+
+
+def match(model: ModelDescription, scene_points, scene_normals,
+          config: PPFConfig = PPFConfig(), vote_cap: int | None = None,
+          icp_points=None, icp_normals=None,
+          max_poses_ceiling: int = 8192) -> MatchResult:
+    """Sized match with the topk_saturated retry loop: max_poses doubles
+    up to max_poses_ceiling (and the accumulator size); still saturated
+    there, the flag comes back set (drost.py:400-419)."""
+    return _match_loop(model, scene_points, scene_normals, config, vote_cap,
+                       icp_points, icp_normals, max_poses_ceiling)[0]
+
+
+def _n_cells(model, scene_points, ref_point_df) -> int:
+    n_s = int(scene_points.shape[0])
+    R = (n_s + ref_point_df - 1) // ref_point_df
+    return R * int(model.n_points) * voting.ALPHA_PAD
+
+
+def match_with_state(model: ModelDescription, scene_points, scene_normals,
+                     config: PPFConfig = PPFConfig(),
+                     state: MatchCaps | None = None, icp_points=None,
+                     icp_normals=None, max_poses_ceiling: int = 8192,
+                     ) -> tuple[MatchResult, MatchCaps]:
+    """Serving-loop match (drost.py:422-478): with `state` the match runs
+    at the cached capacities without the count pass; on overflow, or on
+    saturation below the ceiling, it falls back to the sized path.
+    Saturation that persists at the ceiling is terminal: the flagged
+    result comes back with the same state."""
+    if state is not None:
+        cfg = dataclasses.replace(config, max_poses=state.max_poses)
+        res = _match_core(model, scene_points, scene_normals,
+                          ref_point_df=cfg.ref_point_df,
+                          vote_cap=state.vote_cap, config=cfg,
+                          icp_points=icp_points, icp_normals=icp_normals,
+                          seg_cap=state.seg_cap)
+        ovf, sat = torch.stack([res.overflowed, res.topk_saturated]).tolist()
+        if not ovf:
+            if not sat:
+                return res, state
+            cells = _n_cells(model, scene_points, cfg.ref_point_df)
+            if state.max_poses >= min(max_poses_ceiling, cells):
+                return res, state
+    return _match_loop(model, scene_points, scene_normals, config, None,
+                       icp_points, icp_normals, max_poses_ceiling)
+
+
+def _match_loop(model, scene_points, scene_normals, config, vote_cap,
+                icp_points, icp_normals, max_poses_ceiling):
+    """The topk_saturated -> double-max_poses loop (drost.py:481-498);
+    returns (result, caps that produced it)."""
+    cfg = config
+    while True:
+        res, caps = _match_sized_caps(model, scene_points, scene_normals,
+                                      cfg, vote_cap, icp_points, icp_normals)
+        if not bool(res.topk_saturated):
+            return res, caps
+        cells = _n_cells(model, scene_points, cfg.ref_point_df)
+        new_mp = min(2 * cfg.max_poses, max_poses_ceiling, cells)
+        if new_mp <= cfg.max_poses:
+            return res, caps
+        cfg = dataclasses.replace(cfg, max_poses=new_mp)
+
+
+def _match_sized_caps(model: ModelDescription, scene_points, scene_normals,
+                      config: PPFConfig = PPFConfig(),
+                      vote_cap: int | None = None, icp_points=None,
+                      icp_normals=None) -> tuple[MatchResult, MatchCaps]:
+    """Match at capacities sized by the exact count pass when vote_cap is
+    None (drost.py:511-590): the block engine needs the row-padded votes
+    plus one chunk per reference row, and seg_cap the nonzero segments."""
+    if config.engine == "fast" and model.fast_tables is None:
+        raise ValueError(
+            "engine='fast' requires fast_tables; build the model "
+            "description with a fast config")
+    seg_cap = None
+    if vote_cap is None:
+        total, total_rows, n_segs = _count_votes(
+            model, scene_points, scene_normals, config.ref_point_df,
+            config.d_angle)
+        if config.engine == "fast":
+            n_s = int(scene_points.shape[0])
+            n_ref = (n_s + config.ref_point_df - 1) // config.ref_point_df
+            total = (total_rows + voting_block.CHUNK_ROWS * n_ref) * 128
+            seg_cap = _next_cap(max(n_segs, 1024))
+        vote_cap = _next_cap(total)
+    res = _match_core(model, scene_points, scene_normals,
+                      ref_point_df=config.ref_point_df,
+                      vote_cap=int(vote_cap), config=config,
+                      icp_points=icp_points, icp_normals=icp_normals,
+                      seg_cap=seg_cap)
+    return res, MatchCaps(int(vote_cap), seg_cap, None, config.max_poses)
+
+
+def _match_sized(model, scene_points, scene_normals,
+                 config: PPFConfig = PPFConfig(), vote_cap=None,
+                 icp_points=None, icp_normals=None) -> MatchResult:
+    return _match_sized_caps(model, scene_points, scene_normals, config,
+                             vote_cap, icp_points, icp_normals)[0]
+
+
+def extract_instances(result: MatchResult, diameter: float,
+                      max_instances: int = 8, min_votes_frac: float = 0.25,
+                      min_separation_factor: float = 0.7
+                      ) -> tuple[list[np.ndarray], list[float]]:
+    """Greedy non-max suppression over the clustered candidates by
+    translation distance (drost.py:627-685), on the host. Returns
+    ([pose (4, 4)...], [clustered vote count...]), strongest first."""
+    keep = to_numpy(result.pose_keep)
+    poses = to_numpy(result.poses)[keep].copy()
+    counts = to_numpy(result.clustered_counts)[keep]
+    poses[:, :3, 3] = to_numpy(result.clustered_translations)[keep]
+    if len(counts) == 0:
+        return [], []
+    order = np.argsort(-counts)
+    vmax = float(counts[order[0]])
+    thresh = min_separation_factor * diameter
+    out_p: list[np.ndarray] = []
+    out_c: list[float] = []
+    for i in order:
+        if float(counts[i]) < min_votes_frac * vmax \
+                or len(out_p) >= max_instances:
+            break
+        t = poses[i][:3, 3]
+        if all(np.linalg.norm(t - p[:3, 3]) > thresh for p in out_p):
+            out_p.append(poses[i])
+            out_c.append(float(counts[i]))
+    return out_p, out_c

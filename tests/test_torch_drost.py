@@ -1,0 +1,290 @@
+"""The port's main path as a whole against the JAX package: the same model
+and cluttered scene through JAX ``ost.match`` / ``match_with_state`` and
+the port's.
+
+What must agree:
+  * MatchCaps, overflowed and topk_saturated — exactly;
+  * the accumulator — bit for bit when both packages computed the same
+    model and scene keys and the same α fixed-point values; otherwise (an
+    arccos/atan2 ulp flip, see test_torch_ppf.py) it may differ by no more
+    than the votes that the flipped pairs carry in either package;
+  * the winning pose — both meet the reference criteria (0.1·diameter,
+    12°), and the port's is within 1e-4 of JAX's when the accumulators
+    agree (float32 pose arithmetic ordered differently), else within one
+    Hough cell (d_dist, 2·Δα).
+
+torch runs on one CPU thread in this file: torch's vectorized and scalar
+float32 transcendentals can differ by an ulp, and which elements take
+which path depends on how the work is split across threads, so a
+recomputation of the keys in the test would not always reproduce the
+match's own.
+"""
+
+import collections
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import objective_slam_tpu as ost
+from objective_slam_tpu.models import drost as jd
+from objective_slam_tpu.ops import ppf as jppf
+from objective_slam_tpu.utils import serialization as jser, synthetic, \
+    validation as jval
+import objective_slam_tpu_torch as pt
+from objective_slam_tpu_torch.models import drost as td
+from objective_slam_tpu_torch.ops import ppf as tppf
+from objective_slam_tpu_torch.utils import serialization as tser
+
+_ALPHA_SCALE = (1 << 22) / (2.0 * math.pi)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _scene(seed, n_model=100, n_clutter=200):
+    rng = np.random.default_rng(seed)
+    mp, mn = synthetic.blob_cloud(rng, n_model)
+    cp, cn = synthetic.clutter_cloud(rng, n_clutter) if n_clutter else \
+        (None, None)
+    sp, sn, T = synthetic.plant_model(rng, mp, mn, cp, cn)
+    return mp, mn, sp, sn, T
+
+
+@pytest.fixture(scope="module")
+def matched():
+    mp, mn, sp, sn, T = _scene(0)
+    kw = dict(max_poses=256, ref_point_df=2)
+    cj, ct = ost.PPFConfig(**kw), pt.PPFConfig(**kw)
+    dj = ost.build_model_description(mp, mn, cj)
+    dt = pt.build_model_description(mp, mn, ct, device="cpu")
+    rj, capj = ost.match_with_state(dj, sp, sn, cj)
+    rt, capt = pt.match_with_state(dt, sp, sn, ct)
+    return dict(mp=mp, mn=mn, sp=sp, sn=sn, T=T, cj=cj, ct=ct, dj=dj, dt=dt,
+                rj=rj, rt=rt, capj=capj, capt=capt)
+
+
+def _alpha_fix(a):
+    """α as the block engine bins it: 22-bit fixed point (float32 math)."""
+    return np.round((a + np.float32(math.pi))
+                    * np.float32(_ALPHA_SCALE)).astype(np.int64)
+
+
+def _alpha_bits(a):
+    """α as the readable engine bins it: every float32 bit counts."""
+    return np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+
+
+def _triples(table, alpha_key=None):
+    """Multiset of (key, model point, α_m as binned) of a key table; the
+    model side's fixed point is taken in float64 (build_block_tables)."""
+    counts = np.asarray(table.counts)
+    keys = np.repeat(np.arange(counts.size), counts)
+    alpha = np.asarray(table.pair_alpha)
+    a = (np.round((alpha.astype(np.float64) + math.pi) * _ALPHA_SCALE)
+         .astype(np.int64) if alpha_key is None else alpha_key(alpha))
+    return collections.Counter(zip(keys.tolist(),
+                                   np.asarray(table.pair_mr).tolist(),
+                                   a.tolist()))
+
+
+def _flip_bound(m, ref_point_df):
+    """(clean, bound): clean when both packages computed the same model
+    triples and scene keys/α as the engine bins them; bound = votes carried
+    by flipped model or scene pairs, summed over both packages."""
+    readable = m["ct"].engine == "reference"
+    scene_alpha = _alpha_bits if readable else _alpha_fix
+    dj, dt = m["dj"], m["dt"]
+    ref = np.arange(0, len(m["sp"]), ref_point_df)
+    kj, aj = (np.asarray(x) for x in jppf.pairwise_ppf_keys(
+        m["sp"], m["sn"], dj.d_dist, m["cj"].d_angle, dj.max_dist_bin,
+        ref_indices=ref))
+    kt, at = (x.numpy() for x in tppf.pairwise_ppf_keys(
+        torch.from_numpy(m["sp"]), torch.from_numpy(m["sn"]), dt.d_dist,
+        m["ct"].d_angle, dt.max_dist_bin, ref_indices=torch.from_numpy(ref)))
+    flipped_s = ((kj != kt) | (scene_alpha(aj) != scene_alpha(at))).ravel()
+    model_alpha = _alpha_bits if readable else None
+    tri_j = _triples(dj.table, model_alpha)
+    tri_t = _triples(dt.table, model_alpha)
+    bound = 0
+    for keys, tri, other, table in ((kj.ravel(), tri_j, tri_t, dj.table),
+                                    (kt.ravel(), tri_t, tri_j, dt.table)):
+        counts = np.asarray(table.counts)
+        dirty = np.zeros(counts.size + 1, np.int64)
+        for (k, _, _), c in (tri - other).items():
+            dirty[k] += c
+        safe = np.where(keys == jppf.INVALID_KEY, counts.size, keys)
+        cnt = np.append(counts, 0)[safe]
+        bound += int(cnt[flipped_s].sum() + dirty[safe][~flipped_s].sum())
+    clean = not flipped_s.any() and tri_j == tri_t
+    return clean, bound
+
+
+def _check_pair(m, rj, rt, ref_point_df):
+    assert bool(rt.overflowed) == bool(rj.overflowed)
+    assert bool(rt.topk_saturated) == bool(rj.topk_saturated)
+    acc_j, acc_t = np.asarray(rj.accumulator), rt.accumulator.numpy()
+    clean, bound = _flip_bound(m, ref_point_df)
+    diff = int(np.abs(acc_j.astype(np.int64) - acc_t).sum())
+    print(f"{m['ct'].engine}: keys and α equal: {clean}; "
+          f"|Δ accumulator| {diff} <= bound {bound}; votes "
+          f"{int(rj.num_votes)}")
+    if clean:
+        np.testing.assert_array_equal(acc_t, acc_j)
+        assert int(rt.num_votes) == int(rj.num_votes)
+        np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose),
+                                   atol=1e-4)
+    else:
+        assert diff <= bound
+        tdist, rdist = (float(x) for x in ost.ops.transforms.ht_dist(
+            np.asarray(rj.pose), rt.pose.numpy()))
+        assert tdist < m["dt"].d_dist and rdist < 2 * m["ct"].d_angle
+    for pose, cfg in ((np.asarray(rj.pose), m["cj"]),
+                      (rt.pose.numpy(), m["cj"])):
+        assert jval.validate_pose(pose, m["T"], m["dj"].diameter, cfg).match
+
+
+def test_match_caps_and_flags(matched):
+    m = matched
+    assert tuple(m["capt"]) == tuple(m["capj"])
+    assert bool(m["rt"].overflowed) is False
+    assert m["dt"].max_dist_bin == m["dj"].max_dist_bin
+    assert m["dt"].num_keys == m["dj"].num_keys
+    assert m["dt"].diameter == m["dj"].diameter
+
+
+def test_match_accumulator_and_pose(matched):
+    _check_pair(matched, matched["rj"], matched["rt"], 2)
+
+
+def test_reference_engine(matched):
+    """engine="reference" (the readable engine) end to end."""
+    m = matched
+    cj = ost.PPFConfig(max_poses=256, ref_point_df=2, engine="reference")
+    ct = pt.PPFConfig(max_poses=256, ref_point_df=2, engine="reference")
+    dj = ost.build_model_description(m["mp"], m["mn"], cj)
+    dt = pt.build_model_description(m["mp"], m["mn"], ct, device="cpu")
+    assert dt.fast_tables is None
+    rj = ost.match(dj, m["sp"], m["sn"], cj)
+    rt = pt.match(dt, m["sp"], m["sn"], ct)
+    _check_pair(dict(m, dj=dj, dt=dt, cj=cj, ct=ct), rj, rt, 2)
+
+
+def test_match_with_state_reuses_caps(matched, monkeypatch):
+    """Mirror of test_match_with_state_steady_state_skips_count: the second
+    call runs without the count pass on the same caps with the same
+    result; undersized caps fall back to exact sizing."""
+    m = matched
+
+    def boom(*a, **k):
+        raise AssertionError("count pass ran on the steady-state path")
+
+    monkeypatch.setattr(td, "_count_votes", boom)
+    rt2, caps2 = pt.match_with_state(m["dt"], m["sp"], m["sn"], m["ct"],
+                                     state=m["capt"])
+    assert caps2 == m["capt"]
+    assert torch.equal(rt2.accumulator, m["rt"].accumulator)
+    assert torch.equal(rt2.pose, m["rt"].pose)
+    monkeypatch.undo()
+
+    bad = td.MatchCaps(1024, m["capt"].seg_cap, None, 256)
+    rt3, caps3 = pt.match_with_state(m["dt"], m["sp"], m["sn"], m["ct"],
+                                     state=bad)
+    assert caps3 == m["capt"] and not bool(rt3.overflowed)
+    assert torch.equal(rt3.pose, m["rt"].pose)
+
+
+def test_match_with_state_terminal_saturation(monkeypatch):
+    """Mirror of test_match_with_state_terminal_saturation, with the JAX
+    package's flags and caps on the same scene."""
+    mp, mn, sp, sn, _ = _scene(1)
+    cj, ct = ost.PPFConfig(max_poses=4), pt.PPFConfig(max_poses=4)
+    dj = ost.build_model_description(mp, mn, cj)
+    dt = pt.build_model_description(mp, mn, ct, device="cpu")
+    rj, capj = ost.match_with_state(dj, sp, sn, cj, max_poses_ceiling=4)
+    rt, capt = pt.match_with_state(dt, sp, sn, ct, max_poses_ceiling=4)
+    assert tuple(capt) == tuple(capj)
+    assert bool(rt.topk_saturated) and bool(rj.topk_saturated)
+    assert capt.max_poses == 4
+
+    def boom(*a, **k):
+        raise AssertionError("count pass ran on terminal saturation")
+
+    monkeypatch.setattr(td, "_count_votes", boom)
+    rt2, capt2 = pt.match_with_state(dt, sp, sn, ct, state=capt,
+                                     max_poses_ceiling=4)
+    assert capt2 == capt and bool(rt2.topk_saturated)
+    assert torch.equal(rt2.pose, rt.pose)
+
+
+def test_topk_saturated_retry_ladder():
+    """Mirror of test_topk_saturated_auto_retry: the ladder clears the
+    flag; with the ceiling at the start it comes back set."""
+    mp, mn, sp, sn, T = _scene(2, n_model=90, n_clutter=0)
+    cfg = pt.PPFConfig(max_poses=2)
+    dt = pt.build_model_description(mp, mn, cfg, device="cpu")
+    assert bool(td._match_sized(dt, sp, sn, cfg).topk_saturated)
+    res = pt.match(dt, sp, sn, cfg)
+    assert not bool(res.topk_saturated)
+    assert jval.validate_pose(res.pose.numpy(), T, dt.diameter,
+                              ost.PPFConfig()).match
+    assert bool(pt.match(dt, sp, sn, cfg, max_poses_ceiling=2).topk_saturated)
+
+
+def test_extract_instances_matches_jax_function(matched):
+    """The port's extract_instances gives what the JAX package's gives on
+    the same candidate arrays."""
+    rt = matched["rt"]
+    got = td.extract_instances(rt, matched["dt"].diameter, max_instances=5)
+    want = jd.extract_instances(rt._replace(**{
+        f: np.asarray(getattr(rt, f)) for f in rt._fields}),
+        matched["dj"].diameter, max_instances=5)
+    assert got[1] == want[1]
+    for a, b in zip(got[0], want[0]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_carry_jax_saved_description(matched, tmp_path):
+    """A description saved by the JAX package loads into the port and
+    matches like the port's own build."""
+    m = matched
+    path = tmp_path / "model.osn.npz"
+    jser.save_model_description(path, m["dj"])
+    loaded = tser.load_model_description(path, device="cpu")
+    assert loaded.n_points == m["dt"].n_points
+    assert loaded.max_dist_bin == m["dt"].max_dist_bin
+    assert loaded.d_dist == m["dt"].d_dist
+    bt, bl = m["dt"].fast_tables.block, loaded.fast_tables.block
+    if _triples(m["dj"].table) == _triples(m["dt"].table):
+        assert torch.equal(bl.pair2d, bt.pair2d)
+        assert torch.equal(bl.occ_keys, bt.occ_keys)
+    res = pt.match(loaded, m["sp"], m["sn"], m["ct"])
+    assert torch.equal(res.accumulator, m["rt"].accumulator) or \
+        _triples(m["dj"].table) != _triples(m["dt"].table)
+    td_, rd_ = (float(x) for x in pt.ops.transforms.ht_dist(res.pose,
+                                                             m["rt"].pose))
+    assert td_ < 1e-4 and rd_ < 1e-3
+
+
+def test_unported_features_raise(matched, tmp_path):
+    m = matched
+    for kw, item in (({"engine": "correlation"}, "13"),
+                     ({"use_fnv_keys": True}, "12"),
+                     ({"rescore_poses": True}, "7")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            pt.build_model_description(m["mp"], m["mn"], pt.PPFConfig(**kw),
+                                       device="cpu")
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            pt.match(m["dt"], m["sp"], m["sn"], pt.PPFConfig(**kw))
+    dj = ost.build_model_description(m["mp"], m["mn"],
+                                     ost.PPFConfig(engine="correlation"))
+    path = tmp_path / "corr.osn.npz"
+    jser.save_model_description(path, dj)
+    with pytest.raises(NotImplementedError, match="correlation"):
+        tser.load_model_description(path, device="cpu")
