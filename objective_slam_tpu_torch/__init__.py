@@ -10,11 +10,17 @@ Layout (same module and function names as the JAX package):
   ops/transforms, ops/ppf    rigid-transform math, PPF keys and α
   ops/voting, voting_block   key table, readable engine, top-K; the
                              block-expansion engine of the main path
+  ops/voting_fast            the fallback engine for models over the
+                             block budgets
   ops/block_tally            kernel K1 (csrc/block_tally.cu) + plain twin
-  ops/clustering, ops/icp    dense pose clustering, ICP refinement
+  ops/fast_tally             kernel K2 (csrc/fast_tally.cu) + plain twin
+  ops/clustering, ops/icp    pose clustering, ICP refinement
   models/drost               ModelDescription, match, match_with_state
-  utils/                     voxel grid, synthetic scenes, validation,
-                             loading descriptions saved by the JAX package
+  pipeline, cli              ppf_registration and the `alignment` CLI
+                             (python -m objective_slam_tpu_torch.cli)
+  utils/                     voxel grid, PLY files, synthetic scenes,
+                             validation, loading descriptions saved by the
+                             JAX package
 """
 
 import torch as _torch

@@ -18,8 +18,14 @@ def f32(x) -> float:
 
 
 def default_device() -> torch.device:
-    """cuda when a card is present, else cpu (used only for numpy inputs)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The current CUDA device, where an entry point gets numpy inputs and
+    no device. Without a card it raises: the port never picks the CPU by
+    itself; a caller that wants the CPU passes device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port "
+            "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def as_tensor(x, device=None, dtype=torch.float32) -> torch.Tensor:

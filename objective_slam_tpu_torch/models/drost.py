@@ -9,14 +9,15 @@
                 dense pose clustering         (kernel.cu:647-763)
                 argmax winner, optional ICP   (model.cu:293-295)
 
-Engines: "fast" (the block engine, whose tally is kernel K1) and
-"reference" (the readable engine). Everything runs eagerly on the device
-of the model description; numpy inputs are moved there.
+Engines: "fast" and "reference" (the readable engine). "fast" takes the
+block engine (tally: kernel K1) when the model fits its budgets, else the
+fallback engine ``voting_fast.cast_votes_fast`` (tally: kernel K2).
+Everything runs eagerly on the device of the model description; numpy
+inputs are moved there.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: engine="correlation" (queue 1 item 13), use_fnv_keys=True
-(item 12), rescore_poses=True (item 7), and models over the block
-budgets (item 11, kernel K2).
+(item 12) and rescore_poses=True (item 7).
 """
 
 from __future__ import annotations
@@ -81,7 +82,8 @@ def build_model_description(points, normals, config: PPFConfig = PPFConfig(),
 
     d_dist defaults to tau_d · (max bbox edge) (alignment.cpp:246-253).
     The description lives on `device`: by default the device of `points`
-    when it is a tensor, else cuda when present, else cpu."""
+    when it is a tensor, else the current CUDA device (no card: raises;
+    pass device="cpu")."""
     _check_config(config)
     if device is None:
         device = points.device if isinstance(points, torch.Tensor) \
@@ -154,9 +156,15 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
         if model.fast_tables is None:
             raise ValueError("engine='fast' but model.fast_tables is None — "
                              "rebuild tables for this engine")
-        votes = voting_block.cast_votes_block(
-            keys, alpha_s, model.fast_tables.block, model.n_points,
-            config.d_angle, vote_cap, seg_cap=seg_cap)
+        if model.fast_tables.block is not None:
+            votes = voting_block.cast_votes_block(
+                keys, alpha_s, model.fast_tables.block, model.n_points,
+                config.d_angle, vote_cap, seg_cap=seg_cap)
+        else:
+            # Over the block budgets: the fallback engine (drost.py:228-231).
+            votes = voting_fast.cast_votes_fast(
+                keys, alpha_s, model.fast_tables, model.n_points,
+                config.d_angle, vote_cap)
     else:
         votes = voting.cast_votes(keys, alpha_s, model.table, model.n_points,
                                   config.d_angle, vote_cap)
@@ -250,11 +258,14 @@ class MatchCaps(NamedTuple):
 
 def match(model: ModelDescription, scene_points, scene_normals,
           config: PPFConfig = PPFConfig(), vote_cap: int | None = None,
-          icp_points=None, icp_normals=None,
+          icp_points=None, icp_normals=None, runs_cap: int | None = None,
           max_poses_ceiling: int = 8192) -> MatchResult:
     """Sized match with the topk_saturated retry loop: max_poses doubles
     up to max_poses_ceiling (and the accumulator size); still saturated
-    there, the flag comes back set (drost.py:400-419)."""
+    there, the flag comes back set (drost.py:400-419). runs_cap belongs to
+    the correlation engine, which is not ported (it raises); the other
+    engines ignore it, as in the JAX package."""
+    del runs_cap
     return _match_loop(model, scene_points, scene_normals, config, vote_cap,
                        icp_points, icp_normals, max_poses_ceiling)[0]
 
@@ -316,7 +327,9 @@ def _match_sized_caps(model: ModelDescription, scene_points, scene_normals,
                       icp_normals=None) -> tuple[MatchResult, MatchCaps]:
     """Match at capacities sized by the exact count pass when vote_cap is
     None (drost.py:511-590): the block engine needs the row-padded votes
-    plus one chunk per reference row, and seg_cap the nonzero segments."""
+    plus one chunk per reference row, and seg_cap the nonzero segments; the
+    fallback engine needs the votes plus TALLY_CHUNK slots per reference
+    row."""
     if config.engine == "fast" and model.fast_tables is None:
         raise ValueError(
             "engine='fast' requires fast_tables; build the model "
@@ -329,8 +342,11 @@ def _match_sized_caps(model: ModelDescription, scene_points, scene_normals,
         if config.engine == "fast":
             n_s = int(scene_points.shape[0])
             n_ref = (n_s + config.ref_point_df - 1) // config.ref_point_df
-            total = (total_rows + voting_block.CHUNK_ROWS * n_ref) * 128
-            seg_cap = _next_cap(max(n_segs, 1024))
+            if model.fast_tables.block is not None:
+                total = (total_rows + voting_block.CHUNK_ROWS * n_ref) * 128
+                seg_cap = _next_cap(max(n_segs, 1024))
+            else:
+                total += voting_fast.TALLY_CHUNK * n_ref
         vote_cap = _next_cap(total)
     res = _match_core(model, scene_points, scene_normals,
                       ref_point_df=config.ref_point_df,
@@ -345,6 +361,40 @@ def _match_sized(model, scene_points, scene_normals,
                  icp_points=None, icp_normals=None) -> MatchResult:
     return _match_sized_caps(model, scene_points, scene_normals, config,
                              vote_cap, icp_points, icp_normals)[0]
+
+
+def match_accumulator_only(model: ModelDescription, scene_points,
+                           scene_normals, config: PPFConfig = PPFConfig(),
+                           vote_cap: int | None = None) -> voting.VoteResult:
+    """Voting only, with the readable engine (drost.py:593-609): the dense
+    accumulator of MATLAB's voting_scheme.m, for golden tests."""
+    _check_config(config)
+    if vote_cap is None:
+        vote_cap = _next_cap(_count_votes(
+            model, scene_points, scene_normals, config.ref_point_df,
+            config.d_angle)[0])
+    pts, nrm, ref_idx = _scene_inputs(model, scene_points, scene_normals,
+                                      config.ref_point_df)
+    keys, alpha_s = ppf_ops.pairwise_ppf_keys(
+        pts, nrm, model.d_dist, config.d_angle, model.max_dist_bin,
+        ref_indices=ref_idx)
+    return voting.cast_votes(keys, alpha_s, model.table, model.n_points,
+                             config.d_angle, int(vote_cap))
+
+
+def match_greedy_cpu(model: ModelDescription, scene_points, scene_normals,
+                     config: PPFConfig = PPFConfig(),
+                     vote_cap: int | None = None):
+    """Match with the reference's CPU clustering mode (drost.py:612-624;
+    ClusterTransformationsCPU, model.cu:246-266): device voting and pose
+    reconstruction, host greedy clustering. Returns (pose, GreedyCluster)."""
+    res = match(model, scene_points, scene_normals, config, vote_cap)
+    keep = to_numpy(res.pose_keep)
+    poses = to_numpy(res.poses)[keep]
+    votes = to_numpy(res.pose_votes)[keep].astype(np.float32)
+    gc = clustering.cluster_poses_greedy(poses, votes, float(model.d_dist),
+                                         config.d_angle)
+    return gc.poses[0], gc
 
 
 def extract_instances(result: MatchResult, diameter: float,

@@ -22,7 +22,7 @@ import threading
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("block_tally",)
+KERNELS = ("block_tally", "fast_tally")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,32 +1,318 @@
-"""Model tables of the exact ("fast") vote engine.
+"""The exact ("fast") vote engine: model tables and the fallback engine.
 
-Port of the part of ``objective_slam_tpu.ops.voting_fast`` that the main
-path needs (voting_fast.py:159-232): ``FastModelTables`` carrying the
-block-expansion tables. The legacy fast engine — the fallback for models
-over the block budgets, whose tally is TPU kernel K2
-(``voting_fast._pallas_tally``) — is not ported yet, so such a model
-raises instead of falling back silently.
+Port of ``objective_slam_tpu.ops.voting_fast`` (voting_fast.py:53-387).
+``build_fast_tables`` makes the block-expansion tables of the main path
+(ops/voting_block.py) when the model fits their budgets, and always the
+one-lookup tables of the fallback engine ``cast_votes_fast``, which serves
+the models over those budgets (more than 4096 occupied keys, or 1024 model
+points and more). Its tally is kernel K2 (ops/fast_tally.py).
+
+Given the same ``vote_cap`` and ``chunk``, ``cast_votes_fast`` returns the
+same accumulator, ``num_votes`` and ``overflowed`` as the JAX engine:
+
+  scene keys ──one lookup──> (offset, count) per scene pair
+  row-aligned padding: each reference row's votes padded to a chunk
+  segment fills (scatter ± at segment heads and tails, then a scan)
+  one pair-table lookup per vote ──> (m, α bin), integer fixed point
+  tally (kernel K2) ──> (R, n_model, 32) int32
+
+Two TPU layouts are not ported. ``PackedTable``/``packed_lookup``
+(voting_fast.py:108-156) copy each table 128 times, rotated, so that the
+TPU's sublane gather serves any lane; a GPU gathers from a flat table
+directly, so the tables here are flat 1-D tensors, padded like the JAX
+package's to a multiple of 128 with the same fill. ``dict_digits_matmul``
+(:73-105) is a bf16 matrix-unit form of a dictionary lookup that this
+engine does not use.
+
+The uint32 tables are carried as int32 bits; every decode masks after the
+shift. The segment fills run in int64, so the JAX package's int32
+wraparound argument (:307-313) is not needed.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
+import torch
+
+from objective_slam_tpu_torch._common import f32
+from objective_slam_tpu_torch.ops import fast_tally as k2
+from objective_slam_tpu_torch.ops import ppf as ppf_ops
 from objective_slam_tpu_torch.ops import voting as voting_ref
 from objective_slam_tpu_torch.ops import voting_block
 
+LANES = 128
+# Votes per tally chunk; each reference row's votes are padded to a chunk
+# multiple, so buffer sizing adds TALLY_CHUNK per reference row.
+TALLY_CHUNK = 8192
+
+# uint32 packing layouts.
+CNT_BITS = 12                      # bucket count field (counts < 4096)
+OFF_BITS = 32 - CNT_BITS           # pair-array offset field
+ALPHA_BITS = 22                    # fixed-point α_m field
+M_BITS = 32 - ALPHA_BITS           # model point index field (n_m <= 1024)
+_ALPHA_SCALE = (1 << ALPHA_BITS) / (2.0 * math.pi)
+_ALPHA_MAX = (1 << ALPHA_BITS) - 1
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
 
 class FastModelTables(NamedTuple):
-    """Model-side tables of engine="fast": the block-expansion tables."""
-    block: voting_block.BlockTables
+    """Model-side tables of engine="fast", flat 1-D on the key table's
+    device. The packed one-lookup variants are used when the model fits
+    their bit budgets, else the unpacked two-lookup ones; unused fields
+    are None.
+
+    cnt_off     int32 bits of uint32 (offset << CNT_BITS | count), per key
+    pair_packed int32 bits of uint32 (m << ALPHA_BITS | α_m fixed point)
+    counts, offsets  int32 per key (unpacked)
+    pair_mr int32, pair_alpha float32 per model pair (unpacked)
+    block       the block-expansion tables, None over their budgets
+    """
+    cnt_off: torch.Tensor | None
+    pair_packed: torch.Tensor | None
+    counts: torch.Tensor | None
+    offsets: torch.Tensor | None
+    pair_mr: torch.Tensor | None
+    pair_alpha: torch.Tensor | None
+    block: voting_block.BlockTables | None = None
 
 
-def build_fast_tables(table: voting_ref.KeyTable) -> FastModelTables:
-    block = voting_block.build_block_tables(table)
-    if block is None:
-        raise NotImplementedError(
-            "model exceeds the block engine's budgets (n_model < 1024, "
-            f"occupied keys <= {voting_block.BLOCK_MAX_KOCC}); its fallback "
-            "engine and tally kernel K2 are not ported yet (ROADMAP queue 1 "
-            "item 11, queue 2 K2)")
-    return FastModelTables(block=block)
+def _flat(x: np.ndarray, device, fill=0) -> torch.Tensor:
+    """x padded to a multiple of 128 with `fill` — the unrotated layout of
+    the JAX package's pack_table (voting_fast.py:123-134)."""
+    n = x.shape[0]
+    padded = np.concatenate([x, np.full((_ceil_to(n, LANES) - n,), fill,
+                                        x.dtype)])
+    if padded.dtype == np.uint32:
+        padded = padded.view(np.int32)
+    return torch.from_numpy(padded).to(device)
+
+
+def build_fast_tables(table: voting_ref.KeyTable,
+                      max_bytes_per_table: int = 512 * 1024 * 1024,
+                      force_unpacked: bool = False) -> FastModelTables:
+    """Host build from the key table, with the JAX package's packing
+    decisions (voting_fast.py:175-232). force_unpacked takes the two-lookup
+    tables and no block tables, so that the fallback paths stay testable.
+    max_bytes_per_table bounded the TPU layout's rotated copies; a flat
+    table has none, and the argument is kept for the same signature."""
+    del max_bytes_per_table
+    device = table.counts.device
+    counts = table.counts.cpu().numpy()
+    offsets = table.offsets.cpu().numpy()
+    pair_mr = table.pair_mr.cpu().numpy()
+    pair_alpha = table.pair_alpha.cpu().numpy()
+    p = pair_mr.shape[0]
+
+    can_pack_ko = (not force_unpacked and
+                   counts.max(initial=0) < (1 << CNT_BITS) and
+                   p < (1 << OFF_BITS))
+    n_m = int(pair_mr.max(initial=0)) + 1
+    can_pack_pair = (not force_unpacked) and n_m <= (1 << M_BITS)
+
+    t = dict(cnt_off=None, pair_packed=None, counts=None, offsets=None,
+             pair_mr=None, pair_alpha=None)
+    if can_pack_ko:
+        t["cnt_off"] = _flat((offsets.astype(np.uint32) << CNT_BITS)
+                             | counts.astype(np.uint32), device)
+    else:
+        t["counts"] = _flat(counts, device)
+        t["offsets"] = _flat(offsets, device)
+    if can_pack_pair:
+        # α_m to fixed point on the host in float64, as the JAX package.
+        a_fix = np.clip(np.round((pair_alpha.astype(np.float64) + math.pi)
+                                 * _ALPHA_SCALE),
+                        0, _ALPHA_MAX).astype(np.uint32)
+        t["pair_packed"] = _flat((pair_mr.astype(np.uint32) << ALPHA_BITS)
+                                 | a_fix, device)
+    else:
+        t["pair_mr"] = _flat(pair_mr, device)
+        t["pair_alpha"] = _flat(pair_alpha, device, fill=0.0)
+    block = None if force_unpacked else voting_block.build_block_tables(table)
+    return FastModelTables(block=block, **t)
+
+
+def _gather(flat, idx):
+    return flat[idx.to(torch.int64)]
+
+
+def _fill_last(size, idx, vals):
+    """out[v] = vals[s] of the last s with idx[s] <= v, for non-decreasing
+    idx (0 before idx[0]; indices at or past size, a suffix, drop out).
+
+    The differences vals[s] - vals[s-1] are scattered at idx[s] and
+    scanned, so the sum telescopes to the last value; torch's cummax, the
+    JAX package's tool here, is a slow scan on the card. Inside a vote
+    segment this gives what the JAX package's scatter-max + cummax over
+    the segment heads gives (the segment's own pair is the last one that
+    starts at or before the slot); the two differ only on padding slots,
+    where vote_ok is false."""
+    diff = vals - torch.cat([vals.new_zeros(1), vals[:-1]])
+    d = voting_block._scatter_add_drop(size, idx, diff)
+    return torch.cumsum(d, dim=0, dtype=torch.int32)
+
+
+class FastVotes(NamedTuple):
+    """Per-vote arrays of the fallback engine, the tally's inputs.
+
+    m_r, a_bin (vote_cap,) int32; vote_ok (vote_cap,) bool; row_start_p
+    (R,) int32 chunk-aligned first slot of each reference row; total_p ()
+    int32 padded vote count; total () int32 votes; overflow () bool;
+    heads (S,) int32 first slot of each scene pair's segment
+    (non-decreasing; an empty pair's is the next pair's); r_of_s (S,) int32
+    reference row of each scene pair."""
+    m_r: torch.Tensor
+    a_bin: torch.Tensor
+    vote_ok: torch.Tensor
+    row_start_p: torch.Tensor
+    total_p: torch.Tensor
+    total: torch.Tensor
+    overflow: torch.Tensor
+    heads: torch.Tensor
+    r_of_s: torch.Tensor
+
+
+def expand_fast(scene_keys, scene_alpha, tables: FastModelTables,
+                d_angle: float, vote_cap: int,
+                chunk: int = TALLY_CHUNK) -> FastVotes:
+    """Lookup, row-aligned padding, segment fills and the per-vote pair
+    lookup of cast_votes_fast (voting_fast.py:254-361). vote_cap must
+    already be rounded to a multiple of max(128, chunk)."""
+    dev = scene_keys.device
+    R, n = scene_keys.shape
+    S = R * n
+    flat_keys = scene_keys.reshape(-1)
+    flat_alpha = scene_alpha.reshape(-1)
+    valid = flat_keys != ppf_ops.INVALID_KEY
+    safe_keys = torch.where(valid, flat_keys, 0)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    if tables.cnt_off is not None:
+        co = _gather(tables.cnt_off, safe_keys)
+        cnt_q = co & ((1 << CNT_BITS) - 1)
+        off_q = (co >> CNT_BITS) & ((1 << OFF_BITS) - 1)
+    else:
+        cnt_q = _gather(tables.counts, safe_keys)
+        off_q = _gather(tables.offsets, safe_keys)
+    cnt = torch.where(valid, cnt_q, zero)
+
+    # Row-aligned padding so that every tally chunk maps to one row.
+    row_tot = torch.sum(cnt.reshape(R, n), dim=1, dtype=torch.int32)
+    row_tot_p = row_tot + (-row_tot) % chunk
+    row_start_p = voting_ref._exclusive_cumsum(row_tot_p)
+    row_cum = voting_ref._exclusive_cumsum(row_tot)
+    voffs = voting_ref._exclusive_cumsum(cnt)
+    r_of_s = torch.arange(S, dtype=torch.int32, device=dev) // n
+    pad_before = (row_start_p - row_cum).repeat_interleave(n)
+    heads = voffs + pad_before
+    total_p = row_start_p[-1] + row_tot_p[-1]
+    total = row_cum[-1] + row_tot[-1]
+    overflow = total_p > vote_cap
+    del voffs, pad_before
+
+    nz = cnt > 0
+    cap = torch.full((), vote_cap, dtype=torch.int32, device=dev)
+    head_idx = torch.where(nz, heads, cap)
+    tail_idx = torch.where(nz, heads + cnt, cap)
+
+    # Segment start of each slot (the JAX package's scatter-max + cummax;
+    # see _fill_last).
+    start = _fill_last(vote_cap, heads, heads)
+
+    scatter = voting_block._scatter_add_drop
+
+    def seg_fill(vals, dtype):
+        """Each segment's value on its votes, 0 elsewhere: + at the head,
+        − at the tail, then a scan. Segments never overlap, so the value
+        rides exactly."""
+        d = scatter(vote_cap, head_idx, vals, dtype)
+        d += scatter(vote_cap, tail_idx, -vals.to(dtype), dtype)
+        return torch.cumsum(d, dim=0, dtype=dtype)
+
+    # (offset, count) ride one int64 fill, 32 bits each.
+    oc_v = seg_fill(torch.where(nz, (off_q.to(torch.int64) << 32)
+                                | cnt.to(torch.int64), 0), torch.int64)
+    off_v = (oc_v >> 32).to(torch.int32)
+    cnt_v = (oc_v & 0xFFFFFFFF).to(torch.int32)
+    del oc_v
+
+    # α_s as 22-bit fixed point (float32 arithmetic, as the JAX package).
+    alpha_fix = torch.round((flat_alpha + f32(math.pi))
+                            * f32(_ALPHA_SCALE)).to(torch.int32)
+    alpha_fix = torch.clamp(alpha_fix, 0, _ALPHA_MAX)
+    alpha_v = seg_fill(torch.where(nz, alpha_fix, zero), torch.int32)
+
+    v_iota = torch.arange(vote_cap, dtype=torch.int32, device=dev)
+    j = v_iota - start
+    vote_ok = (j >= 0) & (j < cnt_v) & (v_iota < total_p)
+    del start, cnt_v, v_iota
+
+    # THE per-vote lookup; slots are clipped to the padded table, whose pad
+    # entries are 0, as the JAX package's padded lookup reads them.
+    packed = tables.pair_packed
+    table_len = (packed if packed is not None else tables.pair_mr).shape[0]
+    slot = torch.clamp(off_v + j, 0, table_len - 1)
+    del off_v, j
+    if packed is not None:
+        pp = _gather(packed, slot)
+        m_r = (pp >> ALPHA_BITS) & ((1 << M_BITS) - 1)
+        am_fix = pp & _ALPHA_MAX
+        del pp
+    else:
+        m_r = _gather(tables.pair_mr, slot)
+        a_m = _gather(tables.pair_alpha, slot)
+        am_fix = torch.clamp(torch.round((a_m + f32(math.pi))
+                                         * f32(_ALPHA_SCALE))
+                             .to(torch.int32), 0, _ALPHA_MAX)
+        del a_m
+    del slot
+
+    # Integer α binning: wrap(α_s − α_m) to [0, 2π), then the bin.
+    n_angle = int(round(2.0 * math.pi / d_angle))
+    w = (alpha_v - am_fix + (1 << (ALPHA_BITS - 1))) & _ALPHA_MAX
+    del alpha_v, am_fix
+    a_bin = torch.clamp((w * n_angle) >> ALPHA_BITS, 0,
+                        voting_ref.ALPHA_PAD - 1)
+    return FastVotes(m_r=m_r, a_bin=a_bin, vote_ok=vote_ok,
+                     row_start_p=row_start_p, total_p=total_p, total=total,
+                     overflow=overflow, heads=heads, r_of_s=r_of_s)
+
+
+def cast_votes_fast(scene_keys, scene_alpha, tables: FastModelTables,
+                    n_model: int, d_angle: float, vote_cap: int,
+                    chunk: int = TALLY_CHUNK, use_mxu_tally: bool = True
+                    ) -> voting_ref.VoteResult:
+    """Generate and tally votes (voting_fast.py:239-387).
+
+    scene_keys (R, n) int32 packed PPF keys (INVALID_KEY masked),
+    scene_alpha (R, n) float32. vote_cap is rounded up to a multiple of
+    max(128, chunk); row padding takes up to `chunk` slots per reference
+    row, so size it as votes + chunk·R (drost.match does). Votes past the
+    capacity are dropped and set `overflowed`.
+
+    use_mxu_tally (the name is the JAX package's) picks the chunked tally,
+    kernel K2; False tallies with a scatter over a per-vote row fill."""
+    vote_cap = _ceil_to(vote_cap, max(LANES, chunk))
+    R = scene_keys.shape[0]
+    fv = expand_fast(scene_keys, scene_alpha, tables, d_angle, vote_cap,
+                     chunk)
+    A = voting_ref.ALPHA_PAD
+    if use_mxu_tally:
+        acc = k2.fast_tally(fv.m_r, fv.a_bin, fv.vote_ok, fv.row_start_p,
+                            fv.total_p, n_model, chunk)
+    else:
+        r_fill = _fill_last(vote_cap, fv.heads, fv.r_of_s)
+        cells = R * n_model * A
+        target = torch.where(
+            fv.vote_ok,
+            (r_fill.to(torch.int64) * n_model + fv.m_r) * A + fv.a_bin,
+            cells)
+        acc = torch.bincount(target, minlength=cells + 1)[:cells] \
+            .to(torch.int32).reshape(R, n_model, A)
+    return voting_ref.VoteResult(accumulator=acc, num_votes=fv.total,
+                                 overflowed=fv.overflow)

@@ -1,9 +1,12 @@
 """Synthetic scenes with known ground truth (numpy only).
 
-Copies of ``objective_slam_tpu.utils.synthetic`` (synthetic.py:17-96, 266)
-— the same random draws in the same order, so the same seed gives the same
-arrays — plus ``bin_picking_scene``, a copy of ``bench.build_scene``
-(bench.py:89-138). The port cannot import either: both import jax.
+Copies of ``objective_slam_tpu.utils.synthetic`` (synthetic.py:17-228,
+266) — the same random draws in the same order, so the same seed gives the
+same arrays — plus ``bin_picking_scene``, a copy of ``bench.build_scene``
+(bench.py:89-138), and the UWA-analog models and scenes of
+``tools/run_uwa_analog.py`` (``build_models``, ``build_scene``, :44-69,
+135-201, with ``MODEL_DIAMS`` of ``tools/analyze_uwa.py:28-33``). The port
+cannot import any of them: they import jax.
 """
 
 from __future__ import annotations
@@ -125,3 +128,219 @@ def bin_picking_scene(rng, mp_raw, mn_raw, n_total=100_000, n_instances=4,
                                 translation=t)
         truths.append(T)
     return sp, sn, truths
+
+
+_ICO_T = (1.0 + math.sqrt(5.0)) / 2.0
+_ICO_VERTS = np.array([
+    [-1, _ICO_T, 0], [1, _ICO_T, 0], [-1, -_ICO_T, 0], [1, -_ICO_T, 0],
+    [0, -1, _ICO_T], [0, 1, _ICO_T], [0, -1, -_ICO_T], [0, 1, -_ICO_T],
+    [_ICO_T, 0, -1], [_ICO_T, 0, 1], [-_ICO_T, 0, -1], [-_ICO_T, 0, 1],
+], np.float64)
+_ICO_FACES = np.array([
+    [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+    [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+    [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+    [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+], np.int64)
+
+
+def bumpy_mesh(subdiv: int = 3, bumps: float = 0.3):
+    """A closed triangle mesh (subdivided icosahedron with the same radial
+    bump field as blob_cloud) — a real mesh-derived test shape with faces,
+    standing in for the reference's PLY mesh models
+    (matlab/compute_normals.m consumes exactly this kind of input).
+
+    Returns (vertices (n,3) f32, faces (m,3) int32)."""
+    verts = _ICO_VERTS / np.linalg.norm(_ICO_VERTS, axis=1, keepdims=True)
+    faces = _ICO_FACES
+    for _ in range(subdiv):
+        edge_mid = {}
+        new_faces = []
+        vlist = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = vlist[a] + vlist[b]
+                m /= np.linalg.norm(m)
+                edge_mid[key] = len(vlist)
+                vlist.append(m)
+            return edge_mid[key]
+
+        for (a, b, c) in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [ab, b, bc], [ca, bc, c],
+                          [ab, bc, ca]]
+        verts = np.asarray(vlist)
+        faces = np.asarray(new_faces, np.int64)
+    radii = _bump_field(verts, bumps)
+    return ((verts * radii[:, None]).astype(np.float32),
+            faces.astype(np.int32))
+
+
+def torus_mesh(nu: int = 64, nv: int = 32, major: float = 1.0,
+               minor: float = 0.4, wobble: float = 0.35):
+    """Closed genus-1 triangle mesh (torus) — a structurally distinct test
+    shape for the UWA-analog occlusion study (its surface has no spherical
+    topology, unlike the bumpy blobs; PPF feature statistics differ
+    qualitatively). `wobble` varies the tube radius and lifts the tube
+    center along the ring ASYMMETRICALLY — a perfect torus is rotationally
+    symmetric about its axis, which makes 'the' 6-DoF pose ill-posed for
+    validation. Returns (vertices (nu·nv, 3) f32, faces int32)."""
+    iu = np.arange(nu)
+    iv = np.arange(nv)
+    u = 2.0 * np.pi * iu / nu
+    v = 2.0 * np.pi * iv / nv
+    uu, vv = np.meshgrid(u, v, indexing="ij")           # (nu, nv)
+    r_u = minor * (1.0 + wobble * (0.6 * np.sin(3 * uu)
+                                   + 0.4 * np.cos(2 * uu + 1.0)))
+    x = (major + r_u * np.cos(vv)) * np.cos(uu)
+    y = (major + r_u * np.cos(vv)) * np.sin(uu)
+    z = r_u * np.sin(vv) + wobble * 0.4 * minor * np.sin(2 * uu + 0.5)
+    verts = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    faces = []
+    for i in range(nu):
+        for j in range(nv):
+            a = i * nv + j
+            b = ((i + 1) % nu) * nv + j
+            c = ((i + 1) % nu) * nv + (j + 1) % nv
+            d = i * nv + (j + 1) % nv
+            faces += [[a, b, c], [a, c, d]]
+    return (verts.astype(np.float32), np.asarray(faces, np.int32))
+
+
+def superellipsoid_mesh(subdiv: int = 4, p: float = 4.0,
+                        bumps: float = 0.0):
+    """Closed rounded-box triangle mesh: the unit icosphere remapped onto
+    the p-norm unit ball (p = 4 gives a box with rounded edges — flat
+    faces + sharp creases, the opposite feature regime from the blobs).
+    Optional radial bumps on top. Returns (vertices f32, faces int32)."""
+    verts, faces = bumpy_mesh(subdiv=subdiv, bumps=0.0)
+    verts = verts.astype(np.float64)
+    unit = verts / np.linalg.norm(verts, axis=1, keepdims=True)
+    s = (np.abs(unit) ** p).sum(axis=1) ** (-1.0 / p)
+    out = unit * s[:, None]
+    if bumps > 0:
+        out = out * _bump_field(unit, bumps)[:, None]
+    return out.astype(np.float32), faces
+
+
+def partial_view(points, normals, viewpoint, res: int = 96,
+                 depth_tol: float = 0.05):
+    """Self-occlusion culling: keep the points a sensor at `viewpoint`
+    actually sees — back-face cull, then a z-buffer over an image grid
+    keeps only points within depth_tol·range of the nearest hit per pixel.
+    The partial-view generator for occlusion studies (the reference's UWA
+    scenes are real partial scans; SURVEY.md §4.5)."""
+    p = np.asarray(points, np.float64)
+    nr = np.asarray(normals, np.float64)
+    vp = np.asarray(viewpoint, np.float64)
+    to_vp = vp - p
+    depth = np.linalg.norm(to_vp, axis=1)
+    front = np.sum(nr * to_vp, axis=1) > 0
+
+    z = p.mean(axis=0) - vp
+    z /= np.linalg.norm(z)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    if np.linalg.norm(x) < 1e-6:
+        x = np.cross(z, [0.0, 1.0, 0.0])
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    rel = p - vp
+    d = rel @ z
+    u = (rel @ x) / np.maximum(d, 1e-9)
+    v = (rel @ y) / np.maximum(d, 1e-9)
+    ui = np.clip(((u - u.min()) / max(np.ptp(u), 1e-9)
+                  * (res - 1)).astype(int), 0, res - 1)
+    vi = np.clip(((v - v.min()) / max(np.ptp(v), 1e-9)
+                  * (res - 1)).astype(int), 0, res - 1)
+    pix = ui * res + vi
+    zbuf = np.full(res * res, np.inf)
+    np.minimum.at(zbuf, pix[front], depth[front])
+    visible = front & (depth <= zbuf[pix] * (1.0 + depth_tol))
+    return visible
+
+
+# The UWA dataset's model diameters (analyze_mian.py:42-47), as
+# tools/analyze_uwa.py holds them; the UWA-analog models are scaled to them.
+MODEL_DIAMS = {
+    "chef": 136.59418,
+    "trex": 98.828925,
+    "para": 131.250275,
+    "chicken": 86.28052,
+}
+N_TOTAL = 26_000           # raw points of every UWA-analog scene
+SCENE_LEAF_FACTOR = 0.075  # scene voxel leaf / largest model diameter
+
+
+def uwa_analog_models():
+    """The four UWA-analog meshes at the UWA diameters
+    (run_uwa_analog.py:50-69). Returns {name: (verts, faces)}."""
+    out = {}
+    v, f = bumpy_mesh(subdiv=4, bumps=0.35)
+    out["chef"] = (v, f)
+    v, f = bumpy_mesh(subdiv=4, bumps=0.5)
+    out["trex"] = (v * np.float32([1.0, 0.45, 0.4]), f)     # elongated
+    out["para"] = torus_mesh()                               # genus 1
+    out["chicken"] = superellipsoid_mesh(subdiv=4, p=4.0, bumps=0.2)
+    for name, (v, f) in out.items():
+        d = float((v.max(axis=0) - v.min(axis=0)).max())
+        out[name] = ((v * (MODEL_DIAMS[name] / d)).astype(np.float32), f)
+    return out
+
+
+def uwa_analog_scene(rng, models, normals):
+    """One cluttered UWA-analog scene holding a partial view of every model
+    at a random pose, N_TOTAL points in all (run_uwa_analog.py:135-201).
+    Returns (scene_pts, scene_nrm, {name: (T_true, occlusion %)})."""
+    scale = max(MODEL_DIAMS.values())
+    views = {}
+    for name, (verts, _faces) in models.items():
+        nrm = normals[name]
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        vis = partial_view(verts, nrm, d * 4.0 * MODEL_DIAMS[name])
+        # An extra half-space cut spreads occlusion over ~55-85 %.
+        extra = rng.uniform(0.0, 0.55)
+        if extra > 0.02:
+            cut_d = rng.normal(size=3)
+            cut_d /= np.linalg.norm(cut_d)
+            proj = (verts - verts.mean(axis=0)) @ cut_d
+            lim = np.quantile(proj[vis], 1.0 - extra)
+            vis = vis & (proj <= lim)
+        views[name] = (verts[vis], nrm[vis],
+                       100.0 * (1.0 - float(vis.mean())))
+
+    # Planar clutter fills the budget before planting (plant_model centres
+    # poses on the current scene centroid).
+    n_clutter = N_TOTAL - sum(len(v[0]) for v in views.values())
+    per = n_clutter // 6
+    parts_p, parts_n = [], []
+    for b in range(6):
+        cnt = per if b < 5 else n_clutter - 5 * per
+        u = rng.uniform(-0.8, 0.8, size=(cnt, 2)) * scale
+        z = rng.normal(scale=0.004 * scale, size=(cnt, 1))
+        pts = np.concatenate([u, z], axis=1)
+        R = quat_to_matrix(random_rotation_quat(rng))
+        off = rng.uniform(-1.0, 1.0, size=3) * scale
+        parts_p.append((pts @ R.T + off).astype(np.float32))
+        parts_n.append(np.tile(R[:, 2].astype(np.float32), (cnt, 1)))
+    sp = np.concatenate(parts_p).astype(np.float32)
+    sn = np.concatenate(parts_n).astype(np.float32)
+
+    truths = {}
+    centers = []
+    placed = []
+    for name, (vp_, vn_, occl) in views.items():
+        # Non-overlapping placement: pairwise gap > 1.05 mean diameters.
+        while True:
+            t = rng.uniform(-1.1, 1.1, size=3).astype(np.float32) * scale
+            if all(np.linalg.norm(t - c) >
+                   0.55 * (MODEL_DIAMS[name] + MODEL_DIAMS[o]) * 1.05
+                   for c, o in zip(centers, placed)):
+                break
+        centers.append(t)
+        placed.append(name)
+        sp, sn, T = plant_model(rng, vp_, vn_, sp, sn, translation=t)
+        truths[name] = (T, occl)
+    return sp.astype(np.float32), sn.astype(np.float32), truths

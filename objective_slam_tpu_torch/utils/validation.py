@@ -1,12 +1,13 @@
 """Ground-truth validation (port of ``objective_slam_tpu.utils.validation``,
-validation.py:20-49): the reference match criteria of alignment.cpp:317-332
-on the ported ``ht_dist``."""
+validation.py:20-67): the reference match criteria of alignment.cpp:317-332
+on the ported ``ht_dist``, and the 4x4 truth files the CLI reads."""
 
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from objective_slam_tpu_torch._common import as_tensor
@@ -36,3 +37,22 @@ def validate_pose(pose, truth, model_diameter: float,
     return ValidationResult(trans_err=td, rot_err=rd, trans_thresh=tt,
                             rot_thresh=rt, trans_match=td < tt,
                             rot_match=rd < rt, match=td < tt and rd < rt)
+
+
+def read_truth_file(path) -> np.ndarray:
+    """A whitespace-separated 4x4 row-major matrix — the validation file
+    format Eigen's operator>> reads (util.hpp:95-104)."""
+    vals = []
+    with open(path) as f:
+        for line in f:
+            vals.extend(float(x) for x in line.split())
+    if len(vals) < 16:
+        raise ValueError(f"{path}: expected 16 floats, got {len(vals)}")
+    return np.asarray(vals[:16], np.float32).reshape(4, 4)
+
+
+def write_truth_file(path, T) -> None:
+    T = np.asarray(T, np.float32)
+    with open(path, "w") as f:
+        for row in T:
+            f.write(" ".join(f"{v:.9g}" for v in row) + "\n")

@@ -26,3 +26,26 @@ def test_properties_match(kwargs):
     for name in _PROPS:
         assert getattr(t, name) == getattr(j, name), name
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_default_device_never_picks_the_cpu(monkeypatch):
+    """Without a card, an entry point given numpy inputs and no device
+    raises and says how to ask for the CPU; device="cpu" still works."""
+    import numpy as np
+    import torch
+
+    import objective_slam_tpu_torch as pt
+    from objective_slam_tpu_torch import _common
+    from objective_slam_tpu_torch.utils import synthetic
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _common.default_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _common.as_tensor(np.zeros((2, 3), np.float32))
+    mp, mn = synthetic.blob_cloud(np.random.default_rng(0), 40)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.build_model_description(mp, mn)
+    desc = pt.build_model_description(mp, mn, device="cpu")
+    assert desc.device.type == "cpu"
+    assert _common.as_tensor(mp, "cpu").device.type == "cpu"

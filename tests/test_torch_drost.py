@@ -21,6 +21,7 @@ match's own.
 """
 
 import collections
+import dataclasses
 import math
 
 import numpy as np
@@ -288,3 +289,92 @@ def test_unported_features_raise(matched, tmp_path):
     jser.save_model_description(path, dj)
     with pytest.raises(NotImplementedError, match="correlation"):
         tser.load_model_description(path, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def trex_matched():
+    """The UWA-analog trex model (170 points, 4,266 occupied keys: over the
+    block engine's budget) against a small cluttered scene with 62
+    reference rows, through both packages' fallback engine."""
+    from objective_slam_tpu_torch.utils import pointcloud as tpc, \
+        synthetic as tsyn
+    v, f = tsyn.uwa_analog_models()["trex"]
+    nrm = tpc.mesh_vertex_normals(v, f)
+    diam = tpc.bbox_diameter(v)
+    dd = 0.1 * diam
+    mp, mn = tpc.voxel_downsample_np(v, nrm, dd)
+    rng = np.random.default_rng(3)
+    cp, cn = tsyn.clutter_cloud(rng, 200, lo=-80, hi=80)
+    sp_raw, sn_raw, T = tsyn.plant_model(rng, v, nrm, cp, cn)
+    sp, sn = tpc.voxel_downsample_np(sp_raw, sn_raw, dd)
+    kw = dict(max_poses=256, ref_point_df=6)
+    cj, ct = ost.PPFConfig(**kw), pt.PPFConfig(**kw)
+    dj = ost.build_model_description(mp, mn, cj, d_dist=dd)
+    dt = pt.build_model_description(mp, mn, ct, d_dist=dd, device="cpu")
+    rj, capj = ost.match_with_state(dj, sp, sn, cj)
+    rt, capt = pt.match_with_state(dt, sp, sn, ct)
+    return dict(mp=mp, mn=mn, sp=sp, sn=sn, T=T, cj=cj, ct=ct, dj=dj, dt=dt,
+                rj=rj, rt=rt, capj=capj, capt=capt)
+
+
+def test_fallback_engine_over_block_budget(trex_matched):
+    m = trex_matched
+    assert m["dj"].fast_tables.block is None
+    assert m["dt"].fast_tables.block is None
+    assert int((m["dt"].table.counts > 0).sum()) > 4096
+    assert tuple(m["capt"]) == tuple(m["capj"])
+    assert m["capt"].seg_cap is None
+    assert len(range(0, len(m["sp"]), 6)) <= 64
+    _check_pair(m, m["rj"], m["rt"], 6)
+
+
+def test_match_e2e_block_vs_legacy():
+    """Mirror of test_match_e2e_block_vs_legacy: with its block tables
+    stripped, the same model takes the fallback engine (kernel K2's path)
+    and gives the same accumulator and pose as the block engine."""
+    rng = np.random.default_rng(0)
+    m_pts, m_nrm = synthetic.blob_cloud(rng, 220)
+    c_pts, c_nrm = synthetic.blob_cloud(rng, 420)
+    c_pts = c_pts * 1.8 + np.float32([2.5, 0.0, 0.0])
+    scene, scene_n, T = synthetic.plant_model(rng, m_pts, m_nrm, c_pts,
+                                              c_nrm)
+    cfg = pt.PPFConfig(max_poses=256, ref_point_df=3)
+    desc = pt.build_model_description(m_pts, m_nrm, cfg, device="cpu")
+    assert desc.fast_tables.block is not None
+    res, caps = pt.match_with_state(desc, scene, scene_n, cfg)
+    legacy = dataclasses.replace(
+        desc, fast_tables=desc.fast_tables._replace(block=None))
+    res_l, caps_l = pt.match_with_state(legacy, scene, scene_n, cfg)
+    assert caps_l.seg_cap is None and caps.seg_cap is not None
+    assert not bool(res.overflowed) and not bool(res_l.overflowed)
+    assert torch.equal(res.accumulator, res_l.accumulator)
+    torch.testing.assert_close(res.pose, res_l.pose, atol=1e-5, rtol=0)
+    assert jval.validate_pose(res.pose.numpy(), T, desc.diameter,
+                              ost.PPFConfig()).match
+
+
+def test_match_accumulator_only(matched):
+    """The readable engine's dense accumulator, as the JAX package's
+    match_accumulator_only gives it, within the flip bound."""
+    m = matched
+    rj = jd.match_accumulator_only(m["dj"], m["sp"], m["sn"], m["cj"])
+    rt = td.match_accumulator_only(m["dt"], m["sp"], m["sn"], m["ct"])
+    assert int(rt.num_votes) == int(rj.num_votes)
+    assert not bool(rt.overflowed)
+    ref_cfg = pt.PPFConfig(max_poses=256, ref_point_df=2, engine="reference")
+    clean, bound = _flip_bound(dict(m, ct=ref_cfg), 2)
+    diff = int(np.abs(np.asarray(rj.accumulator).astype(np.int64)
+                      - rt.accumulator.numpy()).sum())
+    assert diff == 0 if clean else diff <= bound
+
+
+def test_match_greedy_cpu(matched):
+    """The reference's CPU clustering mode: the same greedy clusters as the
+    JAX package's on the same candidates, and the winner localizes."""
+    m = matched
+    pj, gj = jd.match_greedy_cpu(m["dj"], m["sp"], m["sn"], m["cj"])
+    pt_, gt = td.match_greedy_cpu(m["dt"], m["sp"], m["sn"], m["ct"])
+    assert gt.poses.shape == gj.poses.shape
+    np.testing.assert_allclose(gt.votes, gj.votes)
+    np.testing.assert_allclose(pt_, np.asarray(pj), atol=1e-4)
+    assert jval.validate_pose(pt_, m["T"], m["dt"].diameter, m["cj"]).match

@@ -30,7 +30,10 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import objective_slam_tpu_torch\n"
         "from objective_slam_tpu_torch.models import drost\n"
-        "from objective_slam_tpu_torch.utils import serialization, synthetic\n"
+        "from objective_slam_tpu_torch.utils import ply, serialization, "
+        "synthetic\n"
+        "from objective_slam_tpu_torch import cli, pipeline\n"
+        "from objective_slam_tpu_torch.ops import fast_tally, voting_fast\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
