@@ -8,19 +8,24 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
 
   1. device   the card's name and power limit (nvidia-smi)
   2. build    every kernel of the port built from csrc/ with nvcc
-  3. k1-small kernel K1 (block tally) bit-equal to its plain version on
-              small cases: sentinel words, empty rows, a full buffer, the
-              largest model the block engine takes
-  4. k2-small kernel K2 (fast tally) bit-equal to its plain version on
-              small cases: empty rows, a full buffer, an overflowed one,
-              slots past the live count, n_model 1023/1024, and a 2048-point
-              model that takes the global-atomic path
+  3. k1-small kernel K1 (row gather + block tally) bit-equal to its plain
+              version on small cases: sentinel words, padding rows naming
+              the all-sentinel row, empty middle and trailing rows, a full
+              buffer, a live count past the buffer, the largest model the
+              block engine takes, one reference row holding most vote rows,
+              and every cluster size the wrapper can pick
+  4. k2-small kernel K2 (per-vote expansion + fast tally) bit-equal to its
+              plain version on per-pair arrays: empty rows, a full buffer, a
+              vote_cap that cuts a segment (at every cluster size), unpacked
+              tables, a bucket over 4,096 pairs, n_model 1023/1024, and a
+              2048-point model that takes the global-atomic path
   5. main     the bench protocol (bench.py:248-305, 419-440) on the port:
               a 280-point model, the seed-0 100k-point bin-picking scan,
               match() and match_with_state() twice, the 4-instance run at
               fixed caps, and the readable-engine flip-rate gate; K1 must
               have been launched on this path
-  6. k1-bench K1 bit-equal to its plain version on the main path's arrays
+  6. k1-bench K1 bit-equal to its plain version on the main path's
+              pair table and vote rows
   7. k2-bench round 5's tally gate on the port: on the bench scan, the
               fallback engine (K2) and the block engine (K1) give the same
               accumulator and 46,218,777 votes each
@@ -28,8 +33,11 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               UWA-analog scene 1 (tools/run_uwa_analog.py, seed 7) with the
               harness's argv: chef and chicken go through K1, trex and para
               (over the block budgets) through the fallback engine and K2;
-              then K2 against its plain version on para's own arrays
-  9. times    medians over repetitions, each ended by a synchronize
+              then K2 against its plain version on para's own per-pair
+              arrays, with its packed and its unpacked tables
+  9. times    medians over repetitions, each ended by a synchronize, each
+              kernel's device time from torch.profiler, and both kernels
+              at every cluster size (blocks per reference row)
 Then a JSON line of kernels, the card line again, and the result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -88,30 +96,130 @@ def card_line():
 
 
 def tally_cases(dev):
-    """Small K1 cases: (pp, alpha_row, row_start_p, total_rows_p, n_model).
-    Words past the live rows are left random, so both versions must skip
-    them; the last case's live count runs past row_cap (an overflowed
-    buffer) and both must stop at row_cap."""
+    """Small K1 cases: (label, (pair2d, src_row, alpha_row, row_start_p,
+    total_rows_p), n_model, cluster). The table's last row is all
+    sentinels and padding vote rows name it; src_row past the live rows is
+    left random, so both versions must skip those rows. cluster None lets
+    the wrapper pick; the balance case also runs at every cluster size."""
     rng = np.random.default_rng(1)
     cases = []
-    for n_model, chunk_rows, row_sizes, slack, live in [
-            (24, 4, [2, 0, 3, 1, 2], 1, None),       # empty middle row
-            (100, 4, [3, 3, 0, 0], 0, None),         # full buffer, empty tail
-            (1023, 8, [1, 2, 1], 1, None),           # 130,944 B histogram
-            (280, 64, [0, 0, 4, 1, 1, 0], 2, 1 << 20)]:  # empty lead rows
+    for label, n_model, chunk_rows, row_sizes, slack, live in [
+            ("empty middle row", 24, 4, [2, 0, 3, 1, 2], 1, None),
+            ("full buffer, empty tail", 100, 4, [3, 3, 0, 0], 0, None),
+            ("n_model 1023", 1023, 8, [1, 2, 1], 1, None),
+            ("live past row_cap", 280, 64, [0, 0, 4, 1, 1, 0], 2, 1 << 20),
+            ("one heavy row", 280, 64, [1, 40, 1, 0, 2], 1, None)]:
         row_cap = (sum(row_sizes) + slack) * chunk_rows
-        m = rng.integers(0, n_model, size=(row_cap, 128)).astype(np.uint32)
-        a_m = rng.integers(0, 1 << 22, size=(row_cap, 128)).astype(np.uint32)
-        pp = (m << 22) | a_m
-        pp[rng.random((row_cap, 128)) < 0.2] = 0xFFFFFFFF
+        n_rows = 3 * row_cap // 4 + 1
+        m = rng.integers(0, n_model, size=(n_rows + 1, 128)).astype(np.uint32)
+        a_m = rng.integers(0, 1 << 22, size=(n_rows + 1, 128)) \
+            .astype(np.uint32)
+        pair2d = (m << 22) | a_m
+        pair2d[rng.random((n_rows + 1, 128)) < 0.2] = 0xFFFFFFFF
+        pair2d[n_rows] = 0xFFFFFFFF
+        src_row = rng.integers(0, n_rows + 1, row_cap).astype(np.int32)
+        src_row[rng.random(row_cap) < 0.1] = n_rows       # padding rows
         starts = np.concatenate([[0], np.cumsum(row_sizes)[:-1]]) * chunk_rows
         live = sum(row_sizes) * chunk_rows if live is None else live
-        cases.append((
-            torch_from(pp.view(np.int32), dev),
-            torch_from(rng.integers(0, 1 << 22, row_cap).astype(np.int32),
-                       dev),
-            torch_from(starts.astype(np.int32), dev),
-            torch.tensor(live, dtype=torch.int32, device=dev), n_model))
+        args = (torch_from(pair2d.view(np.int32), dev),
+                torch_from(src_row, dev),
+                torch_from(rng.integers(0, 1 << 22, row_cap).astype(np.int32),
+                           dev),
+                torch_from(starts.astype(np.int32), dev),
+                torch.tensor(live, dtype=torch.int32, device=dev))
+        clusters = [None]
+        if label == "one heavy row":
+            clusters += list(range(1, 9))
+        if label == "n_model 1023":
+            clusters.append(8)          # 8 × 130,944 B on one SM group
+        cases += [(label, args, n_model, c) for c in clusters]
+    return cases
+
+
+def k2_tables(rng, n_model, table_len, packed, m_hi):
+    """A FastModelTables with random pair tables: packed words, or
+    pair_mr/pair_alpha (α_m drawn partly at the rounding half-way points,
+    so the kernel's float32 rounding is held to round-half-even)."""
+    from objective_slam_tpu_torch.ops import voting_fast
+
+    m = rng.integers(0, m_hi, table_len)
+    if packed:
+        a_m = rng.integers(0, 1 << 22, table_len)
+        words = ((m.astype(np.uint32) << 22) | a_m.astype(np.uint32))
+        return voting_fast.FastModelTables(
+            cnt_off=None, pair_packed=torch.from_numpy(words.view(np.int32)),
+            counts=None, offsets=None, pair_mr=None, pair_alpha=None)
+    scale = np.float32((1 << 22) / (2.0 * math.pi))
+    alpha = rng.uniform(-math.pi, math.pi, table_len).astype(np.float32)
+    half = rng.random(table_len) < 0.3
+    k = rng.integers(0, 1 << 22, table_len)
+    alpha[half] = ((k[half] + 0.5) / scale - np.float32(math.pi)) \
+        .astype(np.float32)
+    alpha[:2] = [-math.pi, math.pi]
+    return voting_fast.FastModelTables(
+        cnt_off=None, pair_packed=None, counts=None, offsets=None,
+        pair_mr=torch.from_numpy((m - 1).astype(np.int32)),
+        pair_alpha=torch.from_numpy(alpha))
+
+
+def k2_cases(dev):
+    """Small K2 cases on per-pair arrays: (label, (cnt, off, alpha_fix,
+    row_start_p, row_tot, tables, n, vote_cap), n_model, cluster). Bucket
+    offsets near the table's end run past it (the lookup clamps); some m
+    fall outside [0, n_model). The cut case's vote_cap falls inside one
+    scene pair's votes and runs at every cluster size."""
+    from objective_slam_tpu_torch.ops import voting_fast
+
+    rng = np.random.default_rng(2)
+    cases = []
+    for label, n_model, R, n, chunk, packed, empty, big, cap in [
+            ("empty rows, full buffer", 24, 6, 300, 256, True, (1, 5), 0,
+             "full"),
+            ("vote_cap cuts a segment", 250, 5, 400, 512, True, (), 0, "cut"),
+            ("force_unpacked tables", 250, 4, 300, 256, False, (2,), 0,
+             "room"),
+            ("bucket over 4096 pairs", 150, 3, 200, 1024, False, (), 5000,
+             "room"),
+            ("n_model 1023", 1023, 3, 200, 1024, True, (), 0, "room"),
+            ("n_model 1024", 1024, 3, 200, 1024, True, (0,), 0, "room"),
+            ("n_model 2048, global path", 2048, 3, 200, 2048, False, (), 0,
+             "room")]:
+        table_len = 8192
+        cnt = np.where(rng.random(R * n) < 0.5, 0,
+                       rng.integers(1, 12, R * n)).astype(np.int32)
+        off = rng.integers(0, table_len - 8, R * n).astype(np.int32)
+        if big:
+            cnt[n + 7], off[n + 7] = big, 100
+        for r in empty:
+            cnt[r * n:(r + 1) * n] = 0
+        alpha_fix = rng.integers(0, 1 << 22, R * n).astype(np.int32)
+        row_tot = cnt.reshape(R, n).sum(1).astype(np.int64)
+        row_tot_p = row_tot + (-row_tot) % chunk
+        starts = np.concatenate([[0], np.cumsum(row_tot_p)[:-1]])
+        total_p = int(row_tot_p.sum())
+        heads = (np.concatenate([[0], np.cumsum(cnt)[:-1]])
+                 - np.repeat(np.concatenate([[0], np.cumsum(row_tot)[:-1]])
+                             - starts, n))
+        if cap == "full":
+            vote_cap = total_p
+        elif cap == "room":
+            vote_cap = total_p + 2 * chunk
+        else:
+            cuts = [c for c in range(chunk, total_p, chunk)
+                    if np.any((heads < c) & (c < heads + cnt))]
+            check(cuts, f"k2 case {label}: a vote_cap cuts a segment")
+            vote_cap = cuts[len(cuts) // 2]
+        m_hi = min(n_model + 3, 1024) if packed else n_model + 2
+        t = k2_tables(rng, n_model, table_len, packed, m_hi)
+        tables = voting_fast.FastModelTables(*[
+            None if x is None else x.to(dev) for x in t])
+        args = (torch_from(cnt, dev), torch_from(off, dev),
+                torch_from(alpha_fix, dev),
+                torch_from(starts.astype(np.int32), dev),
+                torch_from(row_tot.astype(np.int32), dev), tables, n,
+                vote_cap)
+        clusters = [None] + (list(range(1, 9)) if cap == "cut" else [])
+        cases += [(label, args, n_model, c) for c in clusters]
     return cases
 
 
@@ -184,6 +292,26 @@ def top_kernels(fn, n=12):
             rows.append((e.key[:60], e.count, us / 1e3))
     rows.sort(key=lambda r: -r[2])
     return rows[:n], sum(r[2] for r in rows if not r[0].startswith("aten::"))
+
+
+def kernel_ms(fn, kernel, reps):
+    """Device time (ms) of one launch of the CUDA kernel whose name holds
+    `kernel`, from torch.profiler over `reps` calls of fn (divided by the
+    launches the trace holds): the kernel alone, without the wrapper's
+    host time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if kernel in e.key and us > 0 and e.count > 0:
+            return us / 1e3 / e.count
+    raise RuntimeError(f"chip_smoke: no device time traced for {kernel}")
 
 
 def torch_from(x, dev):
@@ -295,37 +423,6 @@ def main_path(dev, inputs):
     return numbers, launches, state
 
 
-def k2_cases(dev):
-    """Small K2 cases: (m_r, a_bin, vote_ok, row_start_p, total_p, n_model,
-    chunk). Some m_r fall outside [0, n_model); vote_ok is left random past
-    the live count where `keep_past` is set, so both versions must skip
-    those slots alike."""
-    rng = np.random.default_rng(2)
-    cases = []
-    for n_model, chunk, row_chunks, n_chunks, live, keep_past in [
-            (24, 256, [2, 0, 3, 1, 2], 9, None, False),  # empty middle row
-            (100, 8192, [3, 3, 0], 6, None, False),      # full, empty tail
-            (250, 8192, [2, 2, 3], 5, None, False),      # overflowed buffer
-            (64, 512, [2, 1], 6, 3 * 512 - 17, True),    # random past live
-            (1023, 1024, [1, 2, 1], 4, None, False),     # 130,944 B smem
-            (1024, 1024, [2, 0, 1], 4, None, False),
-            (2048, 2048, [1, 1, 2], 5, None, True)]:     # global atomics
-        vote_cap = n_chunks * chunk
-        live = sum(row_chunks) * chunk if live is None else live
-        ok = rng.random(vote_cap) < 0.6
-        if not keep_past:
-            ok[live:] = False
-        starts = np.concatenate([[0], np.cumsum(row_chunks)[:-1]]) * chunk
-        cases.append((
-            torch_from(rng.integers(-1, n_model + 1, vote_cap)
-                       .astype(np.int32), dev),
-            torch_from(rng.integers(0, 32, vote_cap).astype(np.int32), dev),
-            torch_from(ok, dev), torch_from(starts.astype(np.int32), dev),
-            torch.tensor(live, dtype=torch.int32, device=dev), n_model,
-            chunk))
-    return cases
-
-
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the least time for the work, the larger of the
     bytes over the memory rate and the operations over the float32 rate."""
@@ -389,8 +486,9 @@ def run_cli(argv, dev):
 
 
 def uwa_cli(dev, workdir):
-    """Phase 8: the CLI on UWA-analog scene 1. Returns the numbers, the
-    kernel launches of the call, the argv, and para's per-vote arrays."""
+    """Phase 8: the CLI on UWA-analog scene 1. Returns the numbers (the
+    CLI's peak device memory among them), the kernel launches of the call,
+    the argv, and para's keys, tables and per-pair arrays."""
     from objective_slam_tpu_torch.models import drost
     from objective_slam_tpu_torch.ops import block_tally, fast_tally, ppf, \
         voting_fast
@@ -417,11 +515,13 @@ def uwa_cli(dev, workdir):
 
     drost.match = timed_match
     block_tally.launches = fast_tally.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     try:
         rc, bits = run_cli(argv, dev)
     finally:
         drost.match = plain_match
     sync(dev)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {"block_tally": block_tally.launches,
                 "fast_tally": fast_tally.launches}
 
@@ -463,7 +563,7 @@ def uwa_cli(dev, workdir):
         check(per_model[name]["bit"] == 1,
               f"{name} matches, as in the JAX package ({per_model[name]})")
 
-    # Para's own per-vote arrays, for K2 against its plain version.
+    # Para's own per-pair arrays, for K2 against its plain version.
     r = records[names.index("para")]
     desc, cfg = r["desc"], r["cfg"]
     ref_idx = torch.arange(0, r["sp"].shape[0], cfg.ref_point_df,
@@ -474,14 +574,15 @@ def uwa_cli(dev, workdir):
     vote_cap = drost._next_cap(per_model["para"]["votes"]
                                + voting_fast.TALLY_CHUNK * len(ref_idx))
     vote_cap = voting_fast._ceil_to(vote_cap, voting_fast.TALLY_CHUNK)
-    fv = voting_fast.expand_fast(keys, alpha, desc.fast_tables, cfg.d_angle,
-                                 vote_cap)
+    pl = voting_fast._pair_lookup(keys, alpha, desc.fast_tables, vote_cap)
     numbers = {"bits": dict(zip(names, bits)), "scene_voxels": n_vox,
                "scene_capacity": capacity, "reference_rows": len(ref_idx),
-               "para_vote_cap": vote_cap, "para_total_p": int(fv.total_p),
-               "models": per_model}
-    para = dict(desc=desc, cfg=cfg, keys=keys, alpha=alpha, fv=fv,
-                vote_cap=vote_cap)
+               "para_vote_cap": vote_cap, "para_total_p": int(pl.total_p),
+               "para_scene_pairs": int(pl.cnt.numel()),
+               "para_pairs_with_votes": int((pl.cnt > 0).sum()),
+               "peak_mem_gib": peak_gib, "models": per_model}
+    para = dict(desc=desc, cfg=cfg, keys=keys, alpha=alpha, pl=pl,
+                vote_cap=vote_cap, n=keys.shape[1])
     return numbers, launches, argv, para
 
 
@@ -514,25 +615,33 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}")
 
     with Phase("k1-small"):
-        for *args, n_model in tally_cases(dev):
-            got = block_tally.block_tally(*args, n_model, 30)
+        picked = set()
+        for label, args, n_model, cluster in tally_cases(dev):
+            got = block_tally.block_tally(*args, n_model, 30, cluster=cluster)
             want = block_tally.block_tally_plain(*args, n_model, 30)
-            pp = args[0]
             torch.cuda.synchronize()
+            c = cluster or block_tally.cluster_size(args[1].shape[0],
+                                                    args[3].shape[0])
+            picked.add(c)
             check(torch.equal(got, want),
-                  f"K1 bit-equal at n_model {n_model}, rows {pp.shape[0]}")
+                  f"K1 bit-equal: {label}, cluster {c}")
+        check(picked == set(range(1, block_tally.MAX_CLUSTER + 1)),
+              f"K1 ran at every cluster size, got {sorted(picked)}")
 
     with Phase("k2-small"):
-        n_global = 0
-        for *args, n_model, chunk in k2_cases(dev):
-            got = fast_tally.fast_tally(*args, n_model, chunk)
-            want = fast_tally.fast_tally_plain(*args, n_model, chunk)
+        n_global, picked = 0, set()
+        for label, args, n_model, cluster in k2_cases(dev):
+            got = fast_tally.fast_tally(*args, n_model, 30, cluster=cluster)
+            want = fast_tally.fast_tally_plain_pairs(*args, n_model, 30)
             torch.cuda.synchronize()
+            c = cluster or fast_tally.cluster_size(args[7], args[3].shape[0])
+            picked.add(c)
             check(torch.equal(got, want),
-                  f"K2 bit-equal at n_model {n_model}, vote_cap "
-                  f"{args[0].shape[0]}, live {int(args[4])}")
+                  f"K2 bit-equal: {label}, cluster {c}, vote_cap {args[7]}")
             n_global += n_model > fast_tally.SMEM_MAX_MODEL
         check(n_global > 0, "a K2 case takes the global-atomic path")
+        check(picked == set(range(1, block_tally.MAX_CLUSTER + 1)),
+              f"K2 ran at every cluster size, got {sorted(picked)}")
 
     with Phase("main"):
         torch.cuda.reset_peak_memory_stats()
@@ -542,9 +651,10 @@ def main() -> int:
         print("main path: " + json.dumps(numbers))
 
     with Phase("k1-bench"):
-        pp, alpha_row, row_start_p = st["expanded"][:3]
+        src_row, alpha_row, row_start_p = st["expanded"][:3]
         live = st["expanded"][5]
-        k1_args = (pp, alpha_row, row_start_p, live)
+        pair2d = st["desc"].fast_tables.block.pair2d
+        k1_args = (pair2d, src_row, alpha_row, row_start_p, live)
         n_model, n_angle = st["desc"].n_points, st["cfg"].n_angle
         got = block_tally.block_tally(*k1_args, n_model, n_angle)
         want = block_tally.block_tally_plain(*k1_args, n_model, n_angle)
@@ -552,9 +662,12 @@ def main() -> int:
         check(k1_err == 0, "K1 bit-equal at bench scale")
         check(int(got.sum(dtype=torch.int64)) == numbers["num_votes"],
               "K1 tallies every vote")
-        print(f"k1 bench shape: pp {tuple(pp.shape)}, live rows {int(live)}"
-              f", R {row_start_p.shape[0]}, n_model {n_model}, votes "
-              f"{numbers['num_votes']}")
+        k1_cluster = block_tally.cluster_size(src_row.shape[0],
+                                              row_start_p.shape[0])
+        print(f"k1 bench shape: pair2d {tuple(pair2d.shape)}, src_row "
+              f"{tuple(src_row.shape)}, live rows {int(live)}, R "
+              f"{row_start_p.shape[0]}, n_model {n_model}, cluster "
+              f"{k1_cluster}, votes {numbers['num_votes']}")
         del got, want
 
     with Phase("k2-bench"):
@@ -575,32 +688,43 @@ def main() -> int:
         check(torch.equal(fast.accumulator, block.accumulator),
               "fallback engine (K2) and block engine (K1) bit-equal")
         print(f"k2 bench: votes {votes[0]} in both engines, fallback "
-              f"vote_cap {fast_cap}, accumulators equal")
+              f"vote_cap {fast_cap}, cluster "
+              f"{fast_tally.cluster_size(fast_cap, st['n_ref'])}, "
+              f"accumulators equal")
         del fast, block
 
     with Phase("uwa-cli"):
-        torch.cuda.reset_peak_memory_stats()
         uwa, launches_uwa, uwa_argv, para = uwa_cli(
             dev, ROOT / "build" / "uwa_cli")
-        uwa["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        fv, p_desc, p_cfg = para["fv"], para["desc"], para["cfg"]
-        k2_args = (fv.m_r, fv.a_bin, fv.vote_ok, fv.row_start_p, fv.total_p)
-        chunk = voting_fast.TALLY_CHUNK
-        got = fast_tally.fast_tally(*k2_args, p_desc.n_points, chunk)
-        want = fast_tally.fast_tally_plain(*k2_args, p_desc.n_points, chunk)
+        pl, p_desc, p_cfg = para["pl"], para["desc"], para["cfg"]
+        p_n, p_tables = p_desc.n_points, p_desc.fast_tables
+        k2_args = (pl.cnt, pl.off, pl.alpha_fix, pl.row_start_p, pl.row_tot,
+                   p_tables, para["n"], para["vote_cap"])
+        got = fast_tally.fast_tally(*k2_args, p_n, p_cfg.n_angle)
+        want = fast_tally.fast_tally_plain_pairs(*k2_args, p_n,
+                                                 p_cfg.n_angle)
         k2_err = int((got - want).abs().max())
-        check(k2_err == 0, "K2 bit-equal on para's arrays")
+        check(k2_err == 0, "K2 bit-equal on para's per-pair arrays")
         p_votes = uwa["models"]["para"]["votes"]
         check(int(got.sum(dtype=torch.int64)) == p_votes,
               "K2 tallies every para vote")
-        del got, want
+        # The unpacked tables' float32 α_m rounding, at para's scale.
+        unpacked = voting_fast.build_fast_tables(p_desc.table,
+                                                 force_unpacked=True)
+        check(unpacked.pair_packed is None, "para's unpacked tables")
+        args_u = (*k2_args[:5], unpacked, *k2_args[6:], p_n, p_cfg.n_angle)
+        check(torch.equal(fast_tally.fast_tally(*args_u),
+                          fast_tally.fast_tally_plain_pairs(*args_u)),
+              "K2 bit-equal on para's unpacked tables")
+        uwa["para_cluster"] = fast_tally.cluster_size(para["vote_cap"],
+                                                      pl.row_start_p.numel())
+        del got, want, unpacked
         print("uwa-cli: " + json.dumps(uwa))
 
     with Phase("times"):
         cap, seg_cap = st["cap"], st["seg_cap"]
         cap_vox, d_dist = inputs["vox_capacity"], inputs["d_dist"]
         sp, sn = st["sp"], st["sn"]
-        p_n = p_desc.n_points
 
         def k1():
             block_tally.block_tally(*k1_args, n_model, n_angle)
@@ -608,11 +732,14 @@ def main() -> int:
         def k1_plain():
             block_tally.block_tally_plain(*k1_args, n_model, n_angle)
 
+        def k1_gather():
+            pair2d[src_row.to(torch.int64)]
+
         def k2():
-            fast_tally.fast_tally(*k2_args, p_n, chunk)
+            fast_tally.fast_tally(*k2_args, p_n, p_cfg.n_angle)
 
         def k2_plain():
-            fast_tally.fast_tally_plain(*k2_args, p_n, chunk)
+            fast_tally.fast_tally_plain_pairs(*k2_args, p_n, p_cfg.n_angle)
 
         def e2e_fixed():
             vox = pc.voxel_downsample(sp, sn, d_dist, capacity=cap_vox)
@@ -633,19 +760,19 @@ def main() -> int:
 
         def para_votes():
             return voting_fast.cast_votes_fast(
-                para["keys"], para["alpha"], p_desc.fast_tables, p_n,
-                p_cfg.d_angle, para["vote_cap"]).accumulator
+                para["keys"], para["alpha"], p_tables, p_n, p_cfg.d_angle,
+                para["vote_cap"]).accumulator
 
         def para_expand():
             return voting_fast.expand_fast(
-                para["keys"], para["alpha"], p_desc.fast_tables,
-                p_cfg.d_angle, para["vote_cap"]).m_r
+                para["keys"], para["alpha"], p_tables, p_cfg.d_angle,
+                para["vote_cap"]).m_r
 
         def cli_call():
             check(run_cli(uwa_argv, dev)[0] == 0, "CLI exit code")
 
-        for fn in (k1, k1_plain, k2, k2_plain, e2e_fixed, voting_only,
-                   sized, para_votes, para_expand):
+        for fn in (k1, k1_plain, k1_gather, k2, k2_plain, e2e_fixed,
+                   voting_only, sized, para_votes, para_expand):
             fn()                                    # warm-up
         torch.cuda.synchronize()
         # Kernel and plain version in turns: plain, kernel, kernel, plain.
@@ -657,8 +784,11 @@ def main() -> int:
         t2_plain += event_ms(k2_plain, 3)
         times = {
             "k1_ms": statistics.median(t_k1),
+            "k1_kernel_ms": kernel_ms(k1, "block_tally_kernel", 20),
             "k1_plain_ms": statistics.median(t_plain),
+            "k1_gather_ms": statistics.median(event_ms(k1_gather, 10)),
             "k2_ms": statistics.median(t_k2),
+            "k2_kernel_ms": kernel_ms(k2, "fast_tally_kernel", 20),
             "k2_plain_ms": statistics.median(t2_plain),
             "e2e_pose_fixed_caps_ms": statistics.median(
                 host_ms(e2e_fixed, 10)),
@@ -675,6 +805,35 @@ def main() -> int:
             "uwa_cli_peak_mem_gib": uwa["peak_mem_gib"],
         }
         print(f"times on {card}: " + json.dumps(times))
+        # Per-block balance: each kernel's device time at every cluster size
+        # (blocks per reference row), at bench-seed0 and at para.
+        bench_cap = voting_fast._ceil_to(fast_cap, voting_fast.TALLY_CHUNK)
+        plb = voting_fast._pair_lookup(st["keys"], st["alpha"],
+                                       desc.fast_tables, bench_cap)
+        k2b_args = (plb.cnt, plb.off, plb.alpha_fix, plb.row_start_p,
+                    plb.row_tot, desc.fast_tables, st["keys"].shape[1],
+                    bench_cap)
+        sweep = {"k1_bench": {}, "k2_para": {}, "k2_bench": {}}
+        for c in range(1, block_tally.MAX_CLUSTER + 1):
+            sweep["k1_bench"][c] = kernel_ms(
+                lambda: block_tally.block_tally(*k1_args, n_model, n_angle,
+                                                cluster=c),
+                "block_tally_kernel", 10)
+            sweep["k2_para"][c] = kernel_ms(
+                lambda: fast_tally.fast_tally(*k2_args, p_n, p_cfg.n_angle,
+                                              cluster=c),
+                "fast_tally_kernel", 10)
+            sweep["k2_bench"][c] = kernel_ms(
+                lambda: fast_tally.fast_tally(*k2b_args, n_model, n_angle,
+                                              cluster=c),
+                "fast_tally_kernel", 10)
+        picked = {"k1_bench": k1_cluster,
+                  "k2_para": uwa["para_cluster"],
+                  "k2_bench": fast_tally.cluster_size(bench_cap,
+                                                      st["n_ref"])}
+        print(f"cluster sweep on {card} (kernel ms by blocks per row; the "
+              f"wrapper picks {picked}): " + json.dumps(sweep))
+        del plb, k2b_args
         for label, fn in (("para cast_votes_fast", para_votes),
                           ("uwa-cli call", cli_call)):
             rows, total = top_kernels(fn)
@@ -683,14 +842,21 @@ def main() -> int:
 
     # Bounds: each input byte read once and each output byte written once
     # over the memory rate, or one histogram add per vote over the float32
-    # rate, whichever is longer.
-    acc1 = row_start_p.shape[0] * n_model * 32 * 4
-    k1_bound = bound(int(live) * (128 * 4 + 4) + row_start_p.numel() * 4
-                     + acc1, numbers["num_votes"])
-    p_live = min(int(fv.total_p), fv.m_r.shape[0])
-    acc2 = fv.row_start_p.shape[0] * p_n * 32 * 4
-    k2_bound = bound(p_live + 8 * p_votes + fv.row_start_p.numel() * 4
-                     + acc2, p_votes)
+    # rate, whichever is longer. Where the kernel reads only what the data
+    # asks for (the live vote rows, the pairs that have votes), only that
+    # is counted.
+    R1 = row_start_p.shape[0]
+    k1_bytes = (int(live) * 8 + pair2d.numel() * 4 + R1 * 4
+                + R1 * n_model * 32 * 4)
+    k1_bound = bound(k1_bytes, numbers["num_votes"])
+    R2 = pl.row_start_p.shape[0]
+    table2 = p_tables.pair_packed
+    k2_bytes = (pl.cnt.numel() * 4 + uwa["para_pairs_with_votes"] * 8
+                + table2.numel() * 4 + R2 * 8 + R2 * p_n * 32 * 4)
+    k2_bound = bound(k2_bytes, p_votes)
+    print("bounds: " + json.dumps({
+        "k1_bytes": k1_bytes, "k1_l2_pair_row_bytes": int(live) * 512,
+        "k2_bytes": k2_bytes, "k2_l2_pair_word_bytes": p_votes * 4}))
     print(json.dumps({"kernels": [{
         "name": "block_tally", "route": "cuda",
         "source": "objective_slam_tpu_torch/csrc/block_tally.cu",
@@ -699,7 +865,8 @@ def main() -> int:
         "launches_by_path": {"main": launches_main["block_tally"],
                              "uwa-cli": launches_uwa["block_tally"]},
         "max_abs_err": k1_err, "bitequal": True,
-        "ms": times["k1_ms"], "plain_ms": times["k1_plain_ms"],
+        "ms": times["k1_kernel_ms"], "event_ms": times["k1_ms"],
+        "plain_ms": times["k1_plain_ms"],
         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
         "library_ms": None,
     }, {
@@ -710,7 +877,8 @@ def main() -> int:
         "launches_by_path": {"main": launches_main["fast_tally"],
                              "uwa-cli": launches_uwa["fast_tally"]},
         "max_abs_err": k2_err, "bitequal": True,
-        "ms": times["k2_ms"], "plain_ms": times["k2_plain_ms"],
+        "ms": times["k2_kernel_ms"], "event_ms": times["k2_ms"],
+        "plain_ms": times["k2_plain_ms"],
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
         "library_ms": None,
     }]}))

@@ -3,10 +3,10 @@
 Each source ``csrc/<name>.cu`` is compiled by nvcc for sm_90a into a shared
 library with a plain C interface and loaded with ctypes. Libraries go to
 ``objective_slam_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing is built at import: ``load`` builds at first use, and
-``build`` compiles several sources at once (one nvcc each, all started
-together).
+source, the ``csrc/*.cuh`` headers it includes and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. Nothing is
+built at import: ``load`` builds at first use, and ``build`` compiles
+several sources at once (one nvcc each, all started together).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -42,11 +43,29 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[pathlib.Path]:
+    """csrc/<name>.cu and every csrc header it includes with quotes,
+    directly or through another header, in the order first met."""
+    found = [CSRC / f"{name}.cu"]
+    for src in found:
+        for inc in _INCLUDE.findall(src.read_text()):
+            path = CSRC / inc
+            if path.exists() and path not in found:
+                found.append(path)
+    return found
+
+
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of csrc/<name>.cu, named by a hash of the flags, the
+    source and the headers it includes, so that editing any of them
+    rebuilds it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:
@@ -93,3 +112,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(so))
             _libs[name] = lib
         return lib
+
+
+# Returned by a launcher when no thread-block cluster of the asked shape
+# fits the card (csrc/row_hist.cuh, kErrNoClusterFits).
+ERR_NO_CLUSTER_FITS = -1
+
+
+def raise_on_error(kernel: str, lib: ctypes.CDLL, err: int, cluster: int,
+                   smem: int) -> None:
+    """Raise if a launcher returned an error code (0 is success)."""
+    if err == ERR_NO_CLUSTER_FITS:
+        raise RuntimeError(f"{kernel}: no cluster of {cluster} blocks with "
+                           f"{smem} B of shared memory each fits the card")
+    if err != 0:
+        raise RuntimeError(f"{kernel}: launch failed: "
+                           + lib.osn_cuda_error_string(err).decode())

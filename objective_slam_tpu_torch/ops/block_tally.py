@@ -1,9 +1,10 @@
-"""Kernel K1 — the block tally — its wrapper and its plain torch version.
+"""Kernel K1 — the block tally with the row gather fused in — its wrapper
+and its plain torch version.
 
 Replaces the TPU kernel ``objective_slam_tpu.ops.voting_block._tally``
-(Pallas kernel at voting_block.py:538-579, pallas_call at :590). The CUDA
-source is ``csrc/block_tally.cu``; its header note gives the design and
-what bounds it on the card.
+(Pallas kernel at voting_block.py:538-579, pallas_call at :590) and the
+row gather before it (:421). The CUDA source is ``csrc/block_tally.cu``;
+its header note gives the design and what bounds it on the card.
 
 ``block_tally`` runs the plain version for CPU tensors and launches the
 kernel for CUDA tensors (or raises); it never falls back from one to the
@@ -29,6 +30,8 @@ M_BITS = 32 - ALPHA_BITS
 _ALPHA_MASK = (1 << ALPHA_BITS) - 1
 _HALF = 1 << (ALPHA_BITS - 1)
 _M_MASK = (1 << M_BITS) - 1
+MAX_CLUSTER = 8                 # blocks per reference row (portable limit)
+_ROWS_PER_BLOCK = 192           # vote rows a cluster block aims to take
 
 launches = 0
 
@@ -57,10 +60,10 @@ def _chunk_row_map(r_of_chunk_start, R: int, chunk_rows: int, n_chunks: int):
     return torch.cummax(cmap[:n_chunks], dim=0).values, start_chunk
 
 
-def block_tally_plain(pp, alpha_row, row_start_p, total_rows_p,
-                      n_model: int, n_angle: int):
-    """Plain torch tally, bit-equal to the JAX package's XLA twin of
-    ``_tally`` (voting_block.py:601-631) on the arrays ``_expand`` makes.
+def tally_rows_plain(pp, alpha_row, row_start_p, total_rows_p,
+                     n_model: int, n_angle: int):
+    """Plain torch tally of gathered pair words pp (row_cap, 128), bit-equal
+    to the JAX package's XLA twin of ``_tally`` (voting_block.py:601-631).
 
     Vote row t belongs to the last reference row r with row_start_p[r] <= t
     (row starts are non-decreasing and chunk-aligned by construction, so
@@ -81,13 +84,29 @@ def block_tally_plain(pp, alpha_row, row_start_p, total_rows_p,
     return acc.to(torch.int32).reshape(R, n_model, ALPHA_PAD)
 
 
+def block_tally_plain(pair2d, src_row, alpha_row, row_start_p, total_rows_p,
+                      n_model: int, n_angle: int):
+    """The function K1 computes, in plain torch: the row gather
+    ``pair2d[src_row]`` followed by ``tally_rows_plain``."""
+    return tally_rows_plain(pair2d[src_row.to(torch.int64)], alpha_row,
+                            row_start_p, total_rows_p, n_model, n_angle)
+
+
+def cluster_size(row_cap: int, R: int) -> int:
+    """Blocks per reference row: about _ROWS_PER_BLOCK vote rows of the
+    capacity each, 1 to MAX_CLUSTER. Host numbers only, so the host never
+    waits for the device."""
+    return max(1, min(MAX_CLUSTER, row_cap // max(R, 1) // _ROWS_PER_BLOCK))
+
+
 def _lib():
     lib = _build.load("block_tally")
     if not getattr(lib, "_osn_typed", False):
         lib.osn_block_tally.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p]
         lib.osn_block_tally.restype = ctypes.c_int
         lib.osn_cuda_error_string.argtypes = [ctypes.c_int]
         lib.osn_cuda_error_string.restype = ctypes.c_char_p
@@ -95,23 +114,26 @@ def _lib():
     return lib
 
 
-def _check(pp, alpha_row, row_start_p, total_rows_p, n_model, n_angle):
-    dev = pp.device
-    for name, t in (("pp", pp), ("alpha_row", alpha_row),
-                    ("row_start_p", row_start_p),
+def _check(pair2d, src_row, alpha_row, row_start_p, total_rows_p, n_model,
+           n_angle):
+    dev = pair2d.device
+    for name, t in (("pair2d", pair2d), ("src_row", src_row),
+                    ("alpha_row", alpha_row), ("row_start_p", row_start_p),
                     ("total_rows_p", total_rows_p)):
         if t.device != dev:
             raise ValueError(f"block_tally: {name} is on {t.device}, "
-                             f"pp on {dev}")
+                             f"pair2d on {dev}")
         if t.dtype != torch.int32:
             raise TypeError(f"block_tally: {name} must be int32, "
                             f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"block_tally: {name} must be contiguous")
-    if pp.dim() != 2 or pp.shape[1] != LANES:
-        raise ValueError(f"block_tally: pp must be (row_cap, {LANES}), "
-                         f"got {tuple(pp.shape)}")
-    if tuple(alpha_row.shape) != (pp.shape[0],):
+    if pair2d.dim() != 2 or pair2d.shape[1] != LANES or pair2d.shape[0] < 1:
+        raise ValueError(f"block_tally: pair2d must be (n_rows + 1, {LANES}),"
+                         f" got {tuple(pair2d.shape)}")
+    if src_row.dim() != 1:
+        raise ValueError("block_tally: src_row must be (row_cap,)")
+    if tuple(alpha_row.shape) != tuple(src_row.shape):
         raise ValueError("block_tally: alpha_row must be (row_cap,)")
     if row_start_p.dim() != 1 or row_start_p.shape[0] < 1:
         raise ValueError("block_tally: row_start_p must be (R,), R >= 1")
@@ -123,38 +145,48 @@ def _check(pp, alpha_row, row_start_p, total_rows_p, n_model, n_angle):
                          f"[1, {_M_MASK}]")
     if n_angle < 1:
         raise ValueError("block_tally: n_angle must be positive")
-    if pp.data_ptr() % 16:
-        raise ValueError("block_tally: pp must be 16-byte aligned")
+    if pair2d.data_ptr() % 16:
+        raise ValueError("block_tally: pair2d must be 16-byte aligned")
 
 
-def block_tally(pp, alpha_row, row_start_p, total_rows_p, n_model: int,
-                n_angle: int):
-    """(R, n_model, 32) int32 tally of the gathered pair words.
+def block_tally(pair2d, src_row, alpha_row, row_start_p, total_rows_p,
+                n_model: int, n_angle: int, cluster: int | None = None):
+    """(R, n_model, 32) int32 tally of the pair-table rows that the vote
+    rows name.
 
-    pp (row_cap, 128) int32, alpha_row (row_cap,) int32, row_start_p (R,)
-    int32, total_rows_p () int32 (the live vote rows; read on the device,
-    so the host never waits for it). CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream."""
+    pair2d (n_rows + 1, 128) int32 pair table (row n_rows all sentinel),
+    src_row (row_cap,) int32 table row of each vote row, alpha_row
+    (row_cap,) int32, row_start_p (R,) int32, total_rows_p () int32 (the
+    live vote rows; read on the device, so the host never waits for it).
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    the current stream with `cluster` blocks per reference row (default
+    ``cluster_size(row_cap, R)``)."""
     global launches
-    tensors = (pp, alpha_row, row_start_p, total_rows_p)
+    tensors = (pair2d, src_row, alpha_row, row_start_p, total_rows_p)
     if all(t.device.type == "cpu" for t in tensors):
-        return block_tally_plain(pp, alpha_row, row_start_p, total_rows_p,
-                                 n_model, n_angle)
-    if pp.device.type != "cuda":
-        raise ValueError(f"block_tally: unsupported device {pp.device}")
-    _check(pp, alpha_row, row_start_p, total_rows_p, n_model, n_angle)
+        return block_tally_plain(pair2d, src_row, alpha_row, row_start_p,
+                                 total_rows_p, n_model, n_angle)
+    if pair2d.device.type != "cuda":
+        raise ValueError(f"block_tally: unsupported device {pair2d.device}")
+    _check(*tensors, n_model, n_angle)
     R = row_start_p.shape[0]
+    row_cap = src_row.shape[0]
+    if cluster is None:
+        cluster = cluster_size(row_cap, R)
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"block_tally: cluster {cluster} outside "
+                         f"[1, {MAX_CLUSTER}]")
     out = torch.empty((R, n_model, ALPHA_PAD), dtype=torch.int32,
-                      device=pp.device)
+                      device=pair2d.device)
     lib = _lib()
-    with torch.cuda.device(pp.device):
-        stream = torch.cuda.current_stream(pp.device).cuda_stream
+    with torch.cuda.device(pair2d.device):
+        stream = torch.cuda.current_stream(pair2d.device).cuda_stream
         err = lib.osn_block_tally(
-            pp.data_ptr(), alpha_row.data_ptr(), row_start_p.data_ptr(),
-            total_rows_p.data_ptr(), R, pp.shape[0], n_model, n_angle,
+            pair2d.data_ptr(), pair2d.shape[0], src_row.data_ptr(),
+            alpha_row.data_ptr(), row_start_p.data_ptr(),
+            total_rows_p.data_ptr(), R, row_cap, n_model, n_angle, cluster,
             out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("block_tally: launch failed: "
-                           + lib.osn_cuda_error_string(err).decode())
+    _build.raise_on_error("block_tally", lib, err, cluster,
+                          n_model * ALPHA_PAD * 4)
     launches += 1
     return out

@@ -5,14 +5,16 @@ The pipeline and its capacity contract are the JAX package's:
 
   scene keys ──dictionary match──> (vote count, bucket start row) per pair
   per-segment row allocation + two per-row cumsum-of-diffs fills
-  pair rows ──ONE row gather──> pp (row_cap, 128) words m << 22 | α_m_fix
-  tally (kernel K1, ops/block_tally.py) ──> (R, n_model, 32) int32
+  ──> src_row (row_cap,): the pair-table row of each vote row
+  row gather + tally (kernel K1, ops/block_tally.py) ──> (R, n_model, 32)
 
 so that given the same `vote_cap`/`seg_cap` the port returns the same
 accumulator, `num_votes` and `overflowed` as the JAX engine. The TPU-shaped
 steps are replaced by their plain GPU forms where the outputs stay equal:
 the one-hot dictionary matmul by a binary search over the sorted occupied
-keys, the sort-based compaction by a scan + scatter.
+keys, the sort-based compaction by a scan + scatter. The JAX package's
+gathered copy pp (row_cap, 128) is not made on the card: K1 reads each
+vote row's pair-table row itself.
 
 The pair table is uint32 in the JAX package; torch carries the same bits
 as int32, so every decode masks after shifting (``(w >> 22) & 0x3FF`` is
@@ -138,20 +140,17 @@ def cast_votes_block(scene_keys, scene_alpha, tables: BlockTables,
     row-padded votes plus up to one chunk of padding per reference row;
     seg_cap bounds the number of nonzero scene-pair segments (None: the
     row capacity). Exceeding either sets `overflowed`."""
-    pp, alpha_row, row_start_p, total, overflow, total_rows_p = _expand(
-        scene_keys, scene_alpha, tables, vote_cap, chunk_rows, seg_cap)
+    src_row, alpha_row, row_start_p, total, overflow, total_rows_p = \
+        _expand(scene_keys, scene_alpha, tables, vote_cap, chunk_rows,
+                seg_cap)
     n_angle = int(round(2.0 * math.pi / d_angle))
-    acc = _tally(pp, alpha_row, row_start_p, total_rows_p, n_model, n_angle)
+    # Kernel K1: the row gather (voting_block.py:421) and the TPU's Pallas
+    # tally (:478-631) are ``block_tally.block_tally`` — a hand-written
+    # CUDA kernel for a CUDA tensor, its plain torch version for a CPU one.
+    acc = k1.block_tally(tables.pair2d, src_row, alpha_row, row_start_p,
+                         total_rows_p, n_model, n_angle)
     return voting_ref.VoteResult(accumulator=acc, num_votes=total,
                                  overflowed=overflow)
-
-
-def _tally(pp, alpha_row, row_start_p, total_rows_p, n_model, n_angle):
-    """Kernel K1: the TPU's Pallas tally (voting_block.py:478-631) is
-    ``block_tally.block_tally`` — a hand-written CUDA kernel for a CUDA
-    tensor, its plain torch version for a CPU tensor."""
-    return k1.block_tally(pp, alpha_row, row_start_p, total_rows_p, n_model,
-                          n_angle)
 
 
 # Spare slots behind a drop-mode scatter's output. Where most indices are
@@ -172,13 +171,15 @@ def _scatter_add_drop(size, idx, vals, dtype=torch.int32):
 
 def _expand(scene_keys, scene_alpha, tables: BlockTables, vote_cap: int,
             chunk_rows: int, seg_cap: int | None = None):
-    """Dictionary match + row allocation + per-row fills + the row gather
-    (voting_block.py:290-424).
+    """Dictionary match + row allocation + per-row fills
+    (voting_block.py:290-416), up to the row gather, which K1 does.
 
-    Returns (pp, alpha_row, row_start_p, total, overflow, total_rows_p):
-    pp (row_cap, 128) int32 words, alpha_row (row_cap,) int32 α_s fixed
-    point per vote row, row_start_p (R,) int32 chunk-aligned first vote row
-    of each reference row, total_rows_p () int32 live vote rows."""
+    Returns (src_row, alpha_row, row_start_p, total, overflow,
+    total_rows_p): src_row (row_cap,) int32 pair-table row of each vote row
+    (n_rows, the all-sentinel row, on padding rows), alpha_row (row_cap,)
+    int32 α_s fixed point per vote row, row_start_p (R,) int32
+    chunk-aligned first vote row of each reference row, total_rows_p ()
+    int32 live vote rows."""
     dev = scene_keys.device
     row_cap = _ceil_to(max(vote_cap // LANES, chunk_rows), chunk_rows)
     R, n = scene_keys.shape
@@ -266,8 +267,5 @@ def _expand(scene_keys, scene_alpha, tables: BlockTables, vote_cap: int,
         fill_u > 0,
         torch.clamp(fill_u - offset + t_iota, 0, tables.n_rows),
         i32(tables.n_rows))
-
-    # THE gather: one 128-word row per vote row.
-    pp = tables.pair2d[src_row.to(torch.int64)]              # (row_cap, 128)
-    return (pp, alpha_row, row_start_p, total, overflow | seg_overflow,
+    return (src_row, alpha_row, row_start_p, total, overflow | seg_overflow,
             total_rows_p)

@@ -10,11 +10,15 @@ points and more). Its tally is kernel K2 (ops/fast_tally.py).
 Given the same ``vote_cap`` and ``chunk``, ``cast_votes_fast`` returns the
 same accumulator, ``num_votes`` and ``overflowed`` as the JAX engine:
 
-  scene keys ──one lookup──> (offset, count) per scene pair
+  scene keys ──one lookup──> (offset, count, α_s) per scene pair
   row-aligned padding: each reference row's votes padded to a chunk
-  segment fills (scatter ± at segment heads and tails, then a scan)
-  one pair-table lookup per vote ──> (m, α bin), integer fixed point
-  tally (kernel K2) ──> (R, n_model, 32) int32
+  ──> per-vote expansion + tally (kernel K2) ──> (R, n_model, 32) int32
+
+Kernel K2 walks the scene pairs and expands each one's votes itself. Its
+plain version (``expand_fast``, the route of ``use_mxu_tally=False`` and
+of the CPU) writes the per-vote arrays: segment fills (scatter ± at
+segment heads and tails, then a scan) and one pair-table lookup per vote
+give each slot (m, α bin) in integer fixed point.
 
 Two TPU layouts are not ported. ``PackedTable``/``packed_lookup``
 (voting_fast.py:108-156) copy each table 128 times, rotated, so that the
@@ -141,24 +145,66 @@ def _gather(flat, idx):
     return flat[idx.to(torch.int64)]
 
 
-def _fill_last(size, idx, vals):
-    """out[v] = vals[s] of the last s with idx[s] <= v, for non-decreasing
-    idx (0 before idx[0]; indices at or past size, a suffix, drop out).
+class PairLookup(NamedTuple):
+    """Per-scene-pair part of the fallback engine, the fused tally's inputs.
 
-    The differences vals[s] - vals[s-1] are scattered at idx[s] and
-    scanned, so the sum telescopes to the last value; torch's cummax, the
-    JAX package's tool here, is a slow scan on the card. Inside a vote
-    segment this gives what the JAX package's scatter-max + cummax over
-    the segment heads gives (the segment's own pair is the last one that
-    starts at or before the slot); the two differ only on padding slots,
-    where vote_ok is false."""
-    diff = vals - torch.cat([vals.new_zeros(1), vals[:-1]])
-    d = voting_block._scatter_add_drop(size, idx, diff)
-    return torch.cumsum(d, dim=0, dtype=torch.int32)
+    cnt, off, alpha_fix (S,) int32: votes, pair-array offset of the key's
+    bucket, α_s as 22-bit fixed point; row_tot (R,) int32 votes per
+    reference row; row_start_p (R,) int32 chunk-aligned first slot of each
+    row; total_p () int32 padded vote count; total () int32 votes;
+    overflow () bool."""
+    cnt: torch.Tensor
+    off: torch.Tensor
+    alpha_fix: torch.Tensor
+    row_tot: torch.Tensor
+    row_start_p: torch.Tensor
+    total_p: torch.Tensor
+    total: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _pair_lookup(scene_keys, scene_alpha, tables: FastModelTables,
+                 vote_cap: int, chunk: int = TALLY_CHUNK) -> PairLookup:
+    """One table lookup per scene pair, the row-aligned padding and α_s in
+    fixed point (voting_fast.py:255-294, 315-318): everything of
+    cast_votes_fast that is sized by scene pairs, not by votes."""
+    R, n = scene_keys.shape
+    dev = scene_keys.device
+    flat_keys = scene_keys.reshape(-1)
+    flat_alpha = scene_alpha.reshape(-1)
+    valid = flat_keys != ppf_ops.INVALID_KEY
+    safe_keys = torch.where(valid, flat_keys, 0)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    if tables.cnt_off is not None:
+        co = _gather(tables.cnt_off, safe_keys)
+        cnt_q = co & ((1 << CNT_BITS) - 1)
+        off = (co >> CNT_BITS) & ((1 << OFF_BITS) - 1)
+    else:
+        cnt_q = _gather(tables.counts, safe_keys)
+        off = _gather(tables.offsets, safe_keys)
+    cnt = torch.where(valid, cnt_q, zero)
+
+    # Row-aligned padding so that every tally chunk maps to one row.
+    row_tot = torch.sum(cnt.reshape(R, n), dim=1, dtype=torch.int32)
+    row_tot_p = row_tot + (-row_tot) % chunk
+    row_start_p = voting_ref._exclusive_cumsum(row_tot_p)
+    row_cum = voting_ref._exclusive_cumsum(row_tot)
+    total_p = row_start_p[-1] + row_tot_p[-1]
+    total = row_cum[-1] + row_tot[-1]
+
+    # α_s as 22-bit fixed point (float32 arithmetic, as the JAX package).
+    alpha_fix = torch.round((flat_alpha + f32(math.pi))
+                            * f32(_ALPHA_SCALE)).to(torch.int32)
+    alpha_fix = torch.clamp(alpha_fix, 0, _ALPHA_MAX)
+    return PairLookup(cnt=cnt, off=off, alpha_fix=alpha_fix, row_tot=row_tot,
+                      row_start_p=row_start_p, total_p=total_p, total=total,
+                      overflow=total_p > vote_cap)
 
 
 class FastVotes(NamedTuple):
-    """Per-vote arrays of the fallback engine, the tally's inputs.
+    """Per-vote arrays of the fallback engine's plain route, the chunked
+    tally's inputs.
 
     m_r, a_bin (vote_cap,) int32; vote_ok (vote_cap,) bool; row_start_p
     (R,) int32 chunk-aligned first slot of each reference row; total_p ()
@@ -181,106 +227,20 @@ def expand_fast(scene_keys, scene_alpha, tables: FastModelTables,
                 d_angle: float, vote_cap: int,
                 chunk: int = TALLY_CHUNK) -> FastVotes:
     """Lookup, row-aligned padding, segment fills and the per-vote pair
-    lookup of cast_votes_fast (voting_fast.py:254-361). vote_cap must
-    already be rounded to a multiple of max(128, chunk)."""
-    dev = scene_keys.device
-    R, n = scene_keys.shape
-    S = R * n
-    flat_keys = scene_keys.reshape(-1)
-    flat_alpha = scene_alpha.reshape(-1)
-    valid = flat_keys != ppf_ops.INVALID_KEY
-    safe_keys = torch.where(valid, flat_keys, 0)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-
-    if tables.cnt_off is not None:
-        co = _gather(tables.cnt_off, safe_keys)
-        cnt_q = co & ((1 << CNT_BITS) - 1)
-        off_q = (co >> CNT_BITS) & ((1 << OFF_BITS) - 1)
-    else:
-        cnt_q = _gather(tables.counts, safe_keys)
-        off_q = _gather(tables.offsets, safe_keys)
-    cnt = torch.where(valid, cnt_q, zero)
-
-    # Row-aligned padding so that every tally chunk maps to one row.
-    row_tot = torch.sum(cnt.reshape(R, n), dim=1, dtype=torch.int32)
-    row_tot_p = row_tot + (-row_tot) % chunk
-    row_start_p = voting_ref._exclusive_cumsum(row_tot_p)
-    row_cum = voting_ref._exclusive_cumsum(row_tot)
-    voffs = voting_ref._exclusive_cumsum(cnt)
-    r_of_s = torch.arange(S, dtype=torch.int32, device=dev) // n
-    pad_before = (row_start_p - row_cum).repeat_interleave(n)
-    heads = voffs + pad_before
-    total_p = row_start_p[-1] + row_tot_p[-1]
-    total = row_cum[-1] + row_tot[-1]
-    overflow = total_p > vote_cap
-    del voffs, pad_before
-
-    nz = cnt > 0
-    cap = torch.full((), vote_cap, dtype=torch.int32, device=dev)
-    head_idx = torch.where(nz, heads, cap)
-    tail_idx = torch.where(nz, heads + cnt, cap)
-
-    # Segment start of each slot (the JAX package's scatter-max + cummax;
-    # see _fill_last).
-    start = _fill_last(vote_cap, heads, heads)
-
-    scatter = voting_block._scatter_add_drop
-
-    def seg_fill(vals, dtype):
-        """Each segment's value on its votes, 0 elsewhere: + at the head,
-        − at the tail, then a scan. Segments never overlap, so the value
-        rides exactly."""
-        d = scatter(vote_cap, head_idx, vals, dtype)
-        d += scatter(vote_cap, tail_idx, -vals.to(dtype), dtype)
-        return torch.cumsum(d, dim=0, dtype=dtype)
-
-    # (offset, count) ride one int64 fill, 32 bits each.
-    oc_v = seg_fill(torch.where(nz, (off_q.to(torch.int64) << 32)
-                                | cnt.to(torch.int64), 0), torch.int64)
-    off_v = (oc_v >> 32).to(torch.int32)
-    cnt_v = (oc_v & 0xFFFFFFFF).to(torch.int32)
-    del oc_v
-
-    # α_s as 22-bit fixed point (float32 arithmetic, as the JAX package).
-    alpha_fix = torch.round((flat_alpha + f32(math.pi))
-                            * f32(_ALPHA_SCALE)).to(torch.int32)
-    alpha_fix = torch.clamp(alpha_fix, 0, _ALPHA_MAX)
-    alpha_v = seg_fill(torch.where(nz, alpha_fix, zero), torch.int32)
-
-    v_iota = torch.arange(vote_cap, dtype=torch.int32, device=dev)
-    j = v_iota - start
-    vote_ok = (j >= 0) & (j < cnt_v) & (v_iota < total_p)
-    del start, cnt_v, v_iota
-
-    # THE per-vote lookup; slots are clipped to the padded table, whose pad
-    # entries are 0, as the JAX package's padded lookup reads them.
-    packed = tables.pair_packed
-    table_len = (packed if packed is not None else tables.pair_mr).shape[0]
-    slot = torch.clamp(off_v + j, 0, table_len - 1)
-    del off_v, j
-    if packed is not None:
-        pp = _gather(packed, slot)
-        m_r = (pp >> ALPHA_BITS) & ((1 << M_BITS) - 1)
-        am_fix = pp & _ALPHA_MAX
-        del pp
-    else:
-        m_r = _gather(tables.pair_mr, slot)
-        a_m = _gather(tables.pair_alpha, slot)
-        am_fix = torch.clamp(torch.round((a_m + f32(math.pi))
-                                         * f32(_ALPHA_SCALE))
-                             .to(torch.int32), 0, _ALPHA_MAX)
-        del a_m
-    del slot
-
-    # Integer α binning: wrap(α_s − α_m) to [0, 2π), then the bin.
+    lookup of cast_votes_fast (voting_fast.py:255-361): ``_pair_lookup``
+    then ``fast_tally.expand_slots``. The plain route only; the kernel
+    route never writes these arrays. vote_cap must already be rounded to a
+    multiple of max(128, chunk)."""
+    n = scene_keys.shape[1]
+    pl = _pair_lookup(scene_keys, scene_alpha, tables, vote_cap, chunk)
     n_angle = int(round(2.0 * math.pi / d_angle))
-    w = (alpha_v - am_fix + (1 << (ALPHA_BITS - 1))) & _ALPHA_MAX
-    del alpha_v, am_fix
-    a_bin = torch.clamp((w * n_angle) >> ALPHA_BITS, 0,
-                        voting_ref.ALPHA_PAD - 1)
+    m_r, a_bin, vote_ok, heads, r_of_s = k2.expand_slots(
+        pl.cnt, pl.off, pl.alpha_fix, pl.row_start_p, pl.row_tot, pl.total_p,
+        tables, n, vote_cap, n_angle)
     return FastVotes(m_r=m_r, a_bin=a_bin, vote_ok=vote_ok,
-                     row_start_p=row_start_p, total_p=total_p, total=total,
-                     overflow=overflow, heads=heads, r_of_s=r_of_s)
+                     row_start_p=pl.row_start_p, total_p=pl.total_p,
+                     total=pl.total, overflow=pl.overflow, heads=heads,
+                     r_of_s=r_of_s)
 
 
 def cast_votes_fast(scene_keys, scene_alpha, tables: FastModelTables,
@@ -298,21 +258,25 @@ def cast_votes_fast(scene_keys, scene_alpha, tables: FastModelTables,
     use_mxu_tally (the name is the JAX package's) picks the chunked tally,
     kernel K2; False tallies with a scatter over a per-vote row fill."""
     vote_cap = _ceil_to(vote_cap, max(LANES, chunk))
-    R = scene_keys.shape[0]
-    fv = expand_fast(scene_keys, scene_alpha, tables, d_angle, vote_cap,
-                     chunk)
+    R, n = scene_keys.shape
     A = voting_ref.ALPHA_PAD
     if use_mxu_tally:
-        acc = k2.fast_tally(fv.m_r, fv.a_bin, fv.vote_ok, fv.row_start_p,
-                            fv.total_p, n_model, chunk)
-    else:
-        r_fill = _fill_last(vote_cap, fv.heads, fv.r_of_s)
-        cells = R * n_model * A
-        target = torch.where(
-            fv.vote_ok,
-            (r_fill.to(torch.int64) * n_model + fv.m_r) * A + fv.a_bin,
-            cells)
-        acc = torch.bincount(target, minlength=cells + 1)[:cells] \
-            .to(torch.int32).reshape(R, n_model, A)
+        # Kernel K2 on the per-pair arrays: no per-vote array is made.
+        pl = _pair_lookup(scene_keys, scene_alpha, tables, vote_cap, chunk)
+        acc = k2.fast_tally(pl.cnt, pl.off, pl.alpha_fix, pl.row_start_p,
+                            pl.row_tot, tables, n, vote_cap, n_model,
+                            int(round(2.0 * math.pi / d_angle)))
+        return voting_ref.VoteResult(accumulator=acc, num_votes=pl.total,
+                                     overflowed=pl.overflow)
+    fv = expand_fast(scene_keys, scene_alpha, tables, d_angle, vote_cap,
+                     chunk)
+    r_fill = k2.fill_last(vote_cap, fv.heads, fv.r_of_s)
+    cells = R * n_model * A
+    target = torch.where(
+        fv.vote_ok,
+        (r_fill.to(torch.int64) * n_model + fv.m_r) * A + fv.a_bin,
+        cells)
+    acc = torch.bincount(target, minlength=cells + 1)[:cells] \
+        .to(torch.int32).reshape(R, n_model, A)
     return voting_ref.VoteResult(accumulator=acc, num_votes=fv.total,
                                  overflowed=fv.overflow)

@@ -4,6 +4,7 @@ generators, the partial-view cull, the UWA-analog models and scene against
 tools/run_uwa_analog.py, and a loaded description of a model over the
 block budgets."""
 
+import importlib.util
 import sys
 from pathlib import Path
 
@@ -17,7 +18,8 @@ from objective_slam_tpu.utils import ply as jply, pointcloud as jpc, \
 from objective_slam_tpu_torch.utils import ply as tply, pointcloud as tpc, \
     serialization as tser, synthetic as tsyn, validation as tval
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+TOOLS = Path(__file__).resolve().parent.parent / "tools"
+sys.path.insert(0, str(TOOLS))
 
 
 def _mesh():
@@ -125,11 +127,21 @@ def test_partial_view_equal():
                                   jsyn.partial_view(v, n, vp))
 
 
+def _fresh_tool(name):
+    """A private copy of tools/<name>.py. The shared module's tables may
+    have been extended by other tests in this process (the real-mesh
+    models add their diameters to analyze_uwa.MODEL_DIAMS)."""
+    spec = importlib.util.spec_from_file_location(f"_fresh_{name}",
+                                                  TOOLS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_uwa_analog_models_and_scene_equal_harness():
-    import analyze_uwa
     import run_uwa_analog
 
-    assert tsyn.MODEL_DIAMS == analyze_uwa.MODEL_DIAMS
+    assert tsyn.MODEL_DIAMS == _fresh_tool("analyze_uwa").MODEL_DIAMS
     assert tsyn.N_TOTAL == run_uwa_analog.N_TOTAL
     assert tsyn.SCENE_LEAF_FACTOR == run_uwa_analog.SCENE_LEAF_FACTOR
     mj = run_uwa_analog.build_models()

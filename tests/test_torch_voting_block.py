@@ -1,6 +1,7 @@
 """Port block-expansion engine and the K1 plain tally against the JAX
 package on the same arrays: block tables (pair2d as uint32 bits),
-cast_votes_block accumulator / num_votes / overflowed, and the K1 plain
+cast_votes_block accumulator / num_votes / overflowed, the vote rows'
+pair-table rows against the JAX package's gathered pp, and the K1 plain
 version against the JAX CPU twin of _tally — all bit for bit."""
 
 import math
@@ -97,6 +98,61 @@ def test_cast_votes_block_bit_equal(seed, n_s, ref_df, vote_cap, seg_cap,
     assert bool(rt.overflowed) == overflows
 
 
+_CAST_CASES = [
+    # (seed, n_s, ref_df, vote_cap, seg_cap, chunk_rows): the cases of
+    # test_cast_votes_block_bit_equal.
+    (0, 40, 1, 1 << 18, None, 64),
+    (1, 33, 4, 1 << 18, None, 64),
+    (2, 40, 1, 128, None, 64),
+    (3, 40, 1, 1 << 18, 128, 64),
+    (5, 40, 2, 1 << 18, 1024, 64),
+    (6, 30, 1, 1 << 18, None, 1),
+]
+
+
+@pytest.mark.parametrize("seed,n_s,ref_df,vote_cap,seg_cap,chunk_rows",
+                         _CAST_CASES)
+def test_block_tally_plain_equals_gather_then_tally(seed, n_s, ref_df,
+                                                    vote_cap, seg_cap,
+                                                    chunk_rows):
+    """K1's plain version on (pair2d, src_row) equals the earlier
+    composition — the row gather pair2d[src_row], then the per-word tally —
+    and the rows src_row names are the JAX package's gathered pp, overflow
+    included."""
+    mk, ma, sk, sa, nk, n_m = _keyed(seed, n_s=n_s, ref_point_df=ref_df,
+                                     plant=seed >= 3)
+    _, _, bj, bt = _both_tables(mk, ma, nk)
+    src_row, alpha_row, starts, _, _, live = tvb._expand(
+        torch.from_numpy(sk), torch.from_numpy(sa), bt, vote_cap, chunk_rows,
+        seg_cap)
+    assert src_row.dtype == torch.int32
+    assert 0 <= int(src_row.min()) and int(src_row.max()) <= bt.n_rows
+    pp = bt.pair2d[src_row.to(torch.int64)]
+    want = block_tally.tally_rows_plain(pp, alpha_row, starts, live, n_m,
+                                        N_ANGLE)
+    got = block_tally.block_tally_plain(bt.pair2d, src_row, alpha_row,
+                                        starts, live, n_m, N_ANGLE)
+    assert torch.equal(got, want)
+    pp_j = jvb._expand(jnp.asarray(sk), jnp.asarray(sa), bj, vote_cap,
+                       chunk_rows, seg_cap)[0]
+    np.testing.assert_array_equal(pp.numpy().view(np.uint32),
+                                  np.asarray(pp_j))
+    rj = jvb.cast_votes_block(jnp.asarray(sk), jnp.asarray(sa), bj, n_m,
+                              D_ANGLE, vote_cap, chunk_rows=chunk_rows,
+                              seg_cap=seg_cap)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(rj.accumulator))
+
+
+@pytest.mark.parametrize("rows,R,want", [
+    (524_288, 564, 4),        # the bench scene: 929 vote rows a row
+    (960, 5, 1),              # 192 vote rows a row: one block
+    (1 << 20, 16, 8),         # clipped to the portable cluster size
+    (64, 64, 1),              # fewer rows than reference rows
+])
+def test_k1_cluster_size(rows, R, want):
+    assert block_tally.cluster_size(rows, R) == want
+
+
 def test_block_vs_readable_engine_same_flips():
     """The fixed-point block engine and the float32 readable engine bin a
     few boundary votes differently (PARITY.md §9); on the same arrays the
@@ -142,6 +198,32 @@ def test_exact_full_vote_cap_empty_trailing_row():
                        D_ANGLE, 1 << 20)
     np.testing.assert_array_equal(rt.accumulator.numpy(),
                                   rr.accumulator.numpy())
+
+
+def test_exact_full_vote_cap_plain_equals_gather_then_tally():
+    """The exactly full buffer with an empty trailing row (the case of
+    test_exact_full_vote_cap_empty_trailing_row) through K1's plain
+    version and the earlier gather-then-tally composition."""
+    rng = np.random.default_rng(7)
+    n_m, n_s, nk = 40, 36, 4096
+    mk = rng.integers(0, nk, size=(n_m, n_m)).astype(np.int32)
+    ma = rng.uniform(-math.pi, math.pi, size=(n_m, n_m)).astype(np.float32)
+    sk = rng.integers(0, nk, size=(n_s, n_s)).astype(np.int32)
+    sk[-1, :] = jppf.INVALID_KEY
+    sa = rng.uniform(-math.pi, math.pi, size=(n_s, n_s)).astype(np.float32)
+    _, _, _, bt = _both_tables(mk, ma, nk)
+    skt, sat = torch.from_numpy(sk), torch.from_numpy(sa)
+    vote_cap = int(tvb._expand(skt, sat, bt, 1 << 20, tvb.CHUNK_ROWS)[5]) \
+        * tvb.LANES
+    src_row, alpha_row, starts, _, ovf, live = tvb._expand(
+        skt, sat, bt, vote_cap, tvb.CHUNK_ROWS)
+    assert not bool(ovf) and int(starts[-1]) == vote_cap // tvb.LANES
+    got = block_tally.block_tally_plain(bt.pair2d, src_row, alpha_row,
+                                        starts, live, n_m, N_ANGLE)
+    want = block_tally.tally_rows_plain(bt.pair2d[src_row.to(torch.int64)],
+                                        alpha_row, starts, live, n_m, N_ANGLE)
+    assert torch.equal(got, want)
+    assert int(got[-1].sum()) == 0
 
 
 @pytest.mark.parametrize("starts,R,n_chunks", [
@@ -193,11 +275,25 @@ def test_k1_plain_matches_jax_twin(R, n_model, n_chunks, row_sizes):
                       n_model=n_model, d_angle=D_ANGLE,
                       chunk_rows=chunk_rows, row_cap=row_cap,
                       total_rows_p=jnp.asarray(live))
-    got = block_tally.block_tally(
-        torch.from_numpy(pp), torch.from_numpy(alpha_row),
-        torch.from_numpy(starts), torch.tensor(live), n_model, N_ANGLE)
+    rest = (torch.from_numpy(alpha_row), torch.from_numpy(starts),
+            torch.tensor(live))
+    got = block_tally.tally_rows_plain(torch.from_numpy(pp), *rest, n_model,
+                                       N_ANGLE)
     assert got.dtype == torch.int32 and got.shape == (R, n_model, 32)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # The wrapper on the same words, read through a row table (an identity
+    # src_row over pp plus an all-sentinel row).
+    table, src_row = _as_table(pp)
+    fused = block_tally.block_tally(table, src_row, *rest, n_model, N_ANGLE)
+    np.testing.assert_array_equal(fused.numpy(), np.asarray(want))
+
+
+def _as_table(pp):
+    """(pair2d, src_row): pp's rows as a row table with an all-sentinel
+    row after them, and the identity row map over pp."""
+    table = np.concatenate([pp, np.full((1, 128), -1, np.int32)])
+    return (torch.from_numpy(table),
+            torch.arange(pp.shape[0], dtype=torch.int32))
 
 
 def test_k1_plain_skips_rows_past_live():
@@ -206,22 +302,29 @@ def test_k1_plain_skips_rows_past_live():
     overflowed buffer) reads to row_cap."""
     rng = np.random.default_rng(10)
     pp, alpha_row, starts, live = _tally_inputs(rng, 50, 32, 4, [2, 3, 1])
-    pp_t, a_t, s_t = (torch.from_numpy(x) for x in (pp, alpha_row, starts))
-    base = block_tally.block_tally(pp_t, a_t, s_t, torch.tensor(live), 50,
-                                   N_ANGLE)
-    pp_t[live:] = 5 << 22                        # real words past live
+    table, src_row = _as_table(pp)
+    a_t, s_t = torch.from_numpy(alpha_row), torch.from_numpy(starts)
+    base = block_tally.block_tally(table, src_row, a_t, s_t,
+                                   torch.tensor(live), 50, N_ANGLE)
+    table[live:32] = 5 << 22                     # real words past live
     assert torch.equal(block_tally.block_tally(
-        pp_t, a_t, s_t, torch.tensor(live), 50, N_ANGLE), base)
-    more = block_tally.block_tally(pp_t, a_t, s_t, torch.tensor(1 << 20), 50,
-                                   N_ANGLE)
+        table, src_row, a_t, s_t, torch.tensor(live), 50, N_ANGLE), base)
+    more = block_tally.block_tally(table, src_row, a_t, s_t,
+                                   torch.tensor(1 << 20), 50, N_ANGLE)
     assert int(more.sum() - base.sum()) == (32 - live) * 128
     assert int(more[-1, 5].sum() - base[-1, 5].sum()) == (32 - live) * 128
 
 
+def _k1_args(rng, n_model, row_cap, chunk_rows, row_sizes):
+    """The wrapper's arguments over _tally_inputs' words."""
+    pp, alpha_row, starts, live = _tally_inputs(rng, n_model, row_cap,
+                                                chunk_rows, row_sizes)
+    return [*_as_table(pp), torch.from_numpy(alpha_row),
+            torch.from_numpy(starts), torch.tensor(live)]
+
+
 def test_k1_wrapper_cpu_runs_plain_and_counts_nothing():
-    rng = np.random.default_rng(9)
-    args = [torch.from_numpy(np.asarray(x))
-            for x in _tally_inputs(rng, 10, 8, 4, [1, 1])]
+    args = _k1_args(np.random.default_rng(9), 10, 8, 4, [1, 1])
     before = block_tally.launches
     out = block_tally.block_tally(*args, 10, N_ANGLE)
     assert block_tally.launches == before
@@ -234,8 +337,7 @@ def test_k1_wrapper_cpu_runs_plain_and_counts_nothing():
 def test_k1_wrapper_checks_model_width(n_model, ok):
     """The kernel path takes every model the block engine builds tables
     for (n_model <= 1023, m = 1023 being the sentinel) and no wider."""
-    args = [torch.from_numpy(np.asarray(x)) for x in
-            _tally_inputs(np.random.default_rng(2), 1, 8, 4, [1, 1])]
+    args = _k1_args(np.random.default_rng(2), 1, 8, 4, [1, 1])
     if ok:
         block_tally._check(*args, n_model, N_ANGLE)
     else:
