@@ -35,14 +35,33 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               (over the block budgets) through the fallback engine and K2;
               then K2 against its plain version on para's own per-pair
               arrays, with its packed and its unpacked tables
-  9. times    medians over repetitions, each ended by a synchronize, each
-              kernel's device time from torch.profiler, and both kernels
-              at every cluster size (blocks per reference row)
+  9. corr-bench  the correlation engine on the bench scan (bench.py:250-256,
+              316-320, 394-412): the count pass's vote total, per (row, model
+              point) the block engine's total, no vote more than one α bin
+              off, the runs_cap flag and retry ladder, the chunked path, and
+              the pose through match()
+ 10. est-normals the bench's estimated-normals run (bench.py:442-518): a
+              partial view, normals of model and scene by
+              estimate_normals_grid on the card, matched at sized caps
+ 11. fnv      use_fnv_keys through K1 (bench scan) and K2 (UWA trex): the
+              packed-key accumulator where the model has no hash collision
+ 12. uwa-cli-modes  four more CLI calls on UWA-analog scene 1: the
+              harness's real-mesh argv (correlation engine, rescoring,
+              point-to-plane ICP, normal-aware voxel grid), --use_fnv_keys,
+              and --estimate_normals_k/--smooth_normals/--visualize on
+              model points sampled by area and on the meshes' own vertices
+ 13. times    medians over repetitions, each ended by a synchronize, each
+              kernel's device time from torch.profiler, both kernels at
+              every cluster size (blocks per reference row), and the new
+              paths' stages
+Every path that launches K1 or K2 also holds that kernel against its plain
+version on the path's own keys and caps (the `holds` line).
 Then a JSON line of kernels, the card line again, and the result line.
 Any failed check raises, and the script exits non-zero.
 """
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -60,9 +79,28 @@ N_SEEDS_FOR_CAPACITY = 3      # bench.py sizes the voxel capacity over 3
 N_INSTANCES = 4
 UWA_SEED = 7                  # run_uwa_analog.py's --seed default
 BENCH_VOTES = 46_218_777      # round 5's tally gate, seed 0 (BENCH_r05.json)
+# The bits the JAX package's CLI prints on the CPU for the same files and
+# argv (XLA:CPU, tools/run_uwa_analog.py's scene 1 of seed 7; chef, trex,
+# para, chicken).
+JAX_CPU_BITS = {"base": [1, 1, 0, 1], "corr": [1, 1, 1, 1],
+                "fnv": [1, 1, 0, 1], "normals": [1, 1, 1, 1],
+                "normals_mesh": [1, 1, 0, 0]}
+# Calls whose bits are printed beside the JAX package's and not held to
+# them: on the meshes' own vertices (regular grids) a third of para's points
+# have tied 16th neighbours, which top-k breaks differently from library
+# to library, and a weak peak can go either way.
+BITS_NOT_HELD = ("normals_mesh",)
+# Card normals against the same function on the CPU: at most this share of
+# the points may differ by more than this angle (segment sums in another
+# order move near-degenerate cells).
+NORMALS_TOL_DEG = 1.0
+NORMALS_OUTSIDE = 0.01
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# One entry per comparison of a kernel with its plain version on a driven
+# path's own inputs (hold_kernel).
+HOLDS = []
 
 
 def check(cond, msg):
@@ -269,8 +307,8 @@ def build_bench_inputs(dev, n_model_raw=20_000, n_total=100_000,
                                    capacity=n_total).num_voxels)
            for sp, sn, _ in scenes]
     vox_capacity = ((int(max(occ) * 1.02) + 127) // 128) * 128
-    return dict(mp=mp, mn=mn, d_dist=d_dist, scenes=scenes, occ=occ,
-                vox_capacity=vox_capacity)
+    return dict(mp_raw=mp_raw, mp=mp, mn=mn, d_dist=d_dist, scenes=scenes,
+                occ=occ, vox_capacity=vox_capacity)
 
 
 def top_kernels(fn, n=12):
@@ -321,7 +359,7 @@ def torch_from(x, dev):
 def main_path(dev, inputs):
     """Phase 4: the port's main path on the bench scene. Returns the
     numbers it measured, the K1 launch count of the path, and the arrays
-    that phase 5 and the timings reuse."""
+    that the later phases and the timings reuse."""
     import objective_slam_tpu_torch as pt
     from objective_slam_tpu_torch.models import drost
     from objective_slam_tpu_torch.ops import block_tally, fast_tally, ppf, \
@@ -397,8 +435,6 @@ def main_path(dev, inputs):
     keys, alpha = ppf.pairwise_ppf_keys(vox.points, vox.normals, desc.d_dist,
                                         cfg.d_angle, desc.max_dist_bin,
                                         ref_indices=ref_idx)
-    expanded = voting_block._expand(keys, alpha, desc.fast_tables.block,
-                                    cap, voting_block.CHUNK_ROWS, seg_cap)
     readable = voting.cast_votes(keys, alpha, desc.table, desc.n_points,
                                  cfg.d_angle, drost._next_cap(total))
     check(int(readable.num_votes) == total, "readable engine vote total")
@@ -419,7 +455,7 @@ def main_path(dev, inputs):
         "readable_flip_votes": flips, "readable_flip_rate": flip_rate,
     }
     state = dict(desc=desc, cfg=cfg, cap=cap, seg_cap=seg_cap, sp=sp, sn=sn,
-                 expanded=expanded, keys=keys, alpha=alpha, n_ref=n_ref)
+                 keys=keys, alpha=alpha, n_ref=n_ref)
     return numbers, launches, state
 
 
@@ -431,11 +467,70 @@ def bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def hold_kernel(desc, keys, alpha, n_angle, vote_cap, seg_cap, label):
+    """The tally kernel that `desc` takes (K1 with block tables, else K2)
+    against its plain version on one path's own scene keys and caps. The
+    wrapper's arguments are built as the engine builds them
+    (voting_block._expand, voting_fast._pair_lookup); the two accumulators
+    must be equal and hold every vote. Returns (kernel name, the wrapper's
+    arguments, largest absolute difference)."""
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
+        voting_block, voting_fast
+
+    n_model = desc.n_points
+    if desc.fast_tables.block is not None:
+        name, k = "block_tally", block_tally
+        src_row, alpha_row, row_start_p, total, _, live = \
+            voting_block._expand(keys, alpha, desc.fast_tables.block,
+                                 vote_cap, voting_block.CHUNK_ROWS, seg_cap)
+        args = (desc.fast_tables.block.pair2d, src_row, alpha_row,
+                row_start_p, live)
+        got = k.block_tally(*args, n_model, n_angle)
+        want = k.block_tally_plain(*args, n_model, n_angle)
+    else:
+        name, k = "fast_tally", fast_tally
+        vote_cap = voting_fast._ceil_to(vote_cap, voting_fast.TALLY_CHUNK)
+        pl = voting_fast._pair_lookup(keys, alpha, desc.fast_tables,
+                                      vote_cap)
+        total = pl.total
+        args = (pl.cnt, pl.off, pl.alpha_fix, pl.row_start_p, pl.row_tot,
+                desc.fast_tables, keys.shape[1], vote_cap)
+        got = k.fast_tally(*args, n_model, n_angle)
+        want = k.fast_tally_plain_pairs(*args, n_model, n_angle)
+    err = int((got - want).abs().max())
+    check(err == 0, f"{name} bit-equal to its plain version on {label}")
+    check(int(got.sum(dtype=torch.int64)) == int(total),
+          f"{name} tallies every vote of {label}")
+    HOLDS.append({"path": label, "kernel": name, "max_abs_err": err,
+                  "votes": int(total), "n_model": n_model,
+                  "reference_rows": int(keys.shape[0])})
+    return name, args, err
+
+
+def hold_scene(desc, sp, sn, cfg, label, caps=None):
+    """hold_kernel on a voxelized scene as a sized match sees it: the keys
+    of drost._scene_keys (FNV ranks where the description has a remap) and
+    the caps of drost._match_sized_caps, unless `caps` gives them. Also
+    returns the keys, α_s and caps."""
+    import dataclasses
+
+    from objective_slam_tpu_torch.models import drost
+
+    cfg = dataclasses.replace(cfg, refine_icp=False, rescore_poses=False)
+    if caps is None:
+        caps = drost._match_sized_caps(desc, sp, sn, cfg)[1]
+    pts, nrm, ref_idx = drost._scene_inputs(desc, sp, sn, cfg.ref_point_df)
+    keys, alpha = drost._scene_keys(desc, pts, nrm, ref_idx, cfg.d_angle)
+    name, args, err = hold_kernel(desc, keys, alpha, cfg.n_angle,
+                                  caps.vote_cap, caps.seg_cap, label)
+    return name, args, err, keys, alpha, caps
+
+
 def uwa_files(workdir):
     """The UWA-analog models and scene 1 of tools/run_uwa_analog.py (seed
     7), written as the harness writes them (:244-251, 260-296). Returns
     (argv, names, truths, model diameters as the CLI takes them, n_voxels,
-    capacity)."""
+    capacity, argv of the `uwa-cli-modes` calls)."""
     from objective_slam_tpu_torch.utils import ply, pointcloud as pc, \
         synthetic, validation
 
@@ -443,17 +538,31 @@ def uwa_files(workdir):
     models = synthetic.uwa_analog_models()
     normals = {n: pc.mesh_vertex_normals(v, f) for n, (v, f) in models.items()}
     names = list(models)
-    model_paths = []
+    model_paths, xyz_paths, vert_paths = [], [], []
     for n, (v, f) in models.items():
         model_paths.append(str(workdir / f"{n}_model.ply"))
         ply.write_ply(model_paths[-1], v, normals[n], faces=f)
+        # The same surface as points with neither normals nor faces, for
+        # --estimate_normals_k: 3,000 samples by area, as a scan would be,
+        # and the mesh's own vertices (see BITS_NOT_HELD).
+        xyz_paths.append(str(workdir / f"{n}_xyz.ply"))
+        ply.write_ply(xyz_paths[-1], pc.sample_mesh_surface(
+            v, f, 3000, np.random.default_rng(UWA_SEED))[0])
+        vert_paths.append(str(workdir / f"{n}_verts.ply"))
+        ply.write_ply(vert_paths[-1], v)
     scale = max(synthetic.MODEL_DIAMS.values())
     leaf = synthetic.SCENE_LEAF_FACTOR * scale
     sp, sn, truths = synthetic.uwa_analog_scene(
         np.random.default_rng(UWA_SEED), models, normals)
     check(len(sp) == synthetic.N_TOTAL, "UWA-analog scene size")
-    n_vox = pc.voxel_downsample_np(sp, sn, leaf)[0].shape[0]
-    capacity = ((int(n_vox * 1.15) + 127) // 128) * 128
+
+    def capacity_of(normal_aware):
+        n_vox = pc.voxel_downsample_np(sp, sn, leaf,
+                                       normal_aware=normal_aware)[0].shape[0]
+        return n_vox, ((int(n_vox * 1.15) + 127) // 128) * 128
+
+    n_vox, capacity = capacity_of(False)
+    cap_na = capacity_of(True)[1]
     scene_path = workdir / "rs1.ply"
     ply.write_ply(scene_path, sp, sn)
     truth_paths = []
@@ -470,8 +579,43 @@ def uwa_files(workdir):
             "--normal_aware_downsample", "false", "--max_poses", "1024",
             "--validation_files", ",".join(truth_paths),
             "--loglevel", "info", "--logfile", str(workdir / "rs1_0.log")]
+    modes = {
+        # The harness's real-mesh argv (run_uwa_analog.py:301-337, with
+        # --rescore), on the synthetic meshes.
+        "corr": with_flags(argv, {
+            "--scene_capacity": str(cap_na), "--icp_point_to_plane": "true",
+            "--normal_aware_downsample": "true", "--engine": "correlation",
+            "--runs_cap": str(cap_na * cap_na // 4),
+            "--rescore_poses": "true",
+            "--logfile": str(workdir / "rs1_corr.log")}),
+        "fnv": with_flags(argv, {
+            "--use_fnv_keys": "true",
+            "--logfile": str(workdir / "rs1_fnv.log")}),
+        "normals": with_flags(argv, {
+            "--model_files": ",".join(xyz_paths),
+            "--estimate_normals_k": "16", "--smooth_normals": "1",
+            "--visualize": "true",
+            "--visualize_out": str(workdir / "rs1_vis"),
+            "--logfile": str(workdir / "rs1_normals.log")}),
+    }
+    modes["normals_mesh"] = with_flags(modes["normals"], {
+        "--model_files": ",".join(vert_paths),
+        "--visualize_out": str(workdir / "rs1_vis_mesh"),
+        "--logfile": str(workdir / "rs1_normals_mesh.log")})
     diams = {n: pc.bbox_diameter(v) for n, (v, _) in models.items()}
-    return argv, names, truths, diams, n_vox, capacity
+    return argv, names, truths, diams, n_vox, capacity, modes
+
+
+def with_flags(argv, flags):
+    """A copy of the CLI argv (flag, value, flag, value, ...) with `flags`
+    replaced or appended."""
+    out = list(argv)
+    for flag, value in flags.items():
+        if flag in out:
+            out[out.index(flag) + 1] = value
+        else:
+            out += [flag, value]
+    return out
 
 
 def run_cli(argv, dev):
@@ -485,22 +629,20 @@ def run_cli(argv, dev):
     return rc, [int(b) for b in buf.getvalue().split()]
 
 
-def uwa_cli(dev, workdir):
-    """Phase 8: the CLI on UWA-analog scene 1. Returns the numbers (the
-    CLI's peak device memory among them), the kernel launches of the call,
-    the argv, and para's keys, tables and per-pair arrays."""
+def traced_cli(argv, dev):
+    """One CLI call with drost.match wrapped, so that each model's match
+    is timed and its kernel launches counted (pipeline.py -> drost.match).
+    The launch counts are set to 0 just before the call and read just
+    after. Returns (rc, bits, per-match records, launches, (GiB allocated at
+    the call's start by what earlier phases keep, peak GiB during the call,
+    the former included), ms)."""
     from objective_slam_tpu_torch.models import drost
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, ppf, \
-        voting_fast
-    from objective_slam_tpu_torch.utils import validation
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally
 
-    argv, names, truths, diams, n_vox, capacity = uwa_files(workdir)
     records = []
     plain_match = drost.match
 
     def timed_match(model, scene_points, scene_normals, config, *a, **k):
-        # Per-model match time and kernel launches, around the call the
-        # pipeline makes (pipeline.py -> drost.match).
         sync(dev)
         k1, k2, t0 = block_tally.launches, fast_tally.launches, \
             time.perf_counter()
@@ -515,23 +657,40 @@ def uwa_cli(dev, workdir):
 
     drost.match = timed_match
     block_tally.launches = fast_tally.launches = 0
+    gc.collect()
+    sync(dev)
     torch.cuda.reset_peak_memory_stats()
+    resident_gib = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
     try:
         rc, bits = run_cli(argv, dev)
     finally:
         drost.match = plain_match
     sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = {"block_tally": block_tally.launches,
                 "fast_tally": fast_tally.launches}
+    return rc, bits, records, launches, (resident_gib, peak_gib), ms
 
-    check(rc == 0, f"CLI exit code {rc}")
-    check(len(bits) == len(names) == len(records) == 4,
-          f"four match bits printed ({bits})")
+
+def cli_models(names, bits, records, truths, diams):
+    """Per-model numbers of one traced CLI call, with the checks every call
+    must pass: the vote total is the count pass's, nothing overflowed, the
+    pose is finite and the printed bit is what validate_pose says."""
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.utils import validation
+
+    check(len(bits) == len(names) == len(records),
+          f"one match bit per model ({bits})")
     per_model = {}
     for name, bit, r in zip(names, bits, records):
         desc, cfg, res = r["desc"], r["cfg"], r["res"]
-        fallback = desc.fast_tables.block is None
+        if cfg.engine == "correlation":
+            engine = "correlation"
+        else:
+            engine = "fallback (K2)" if desc.fast_tables.block is None \
+                else "block (K1)"
         total = drost._count_votes(desc, r["sp"], r["sn"], cfg.ref_point_df,
                                    cfg.d_angle)[0]
         check(int(res.num_votes) == total,
@@ -542,14 +701,29 @@ def uwa_cli(dev, workdir):
                                      diams[name], cfg)
         check(bool(v.match) == bool(bit), f"{name}: printed bit")
         per_model[name] = {
-            "engine": "fallback (K2)" if fallback else "block (K1)",
-            "model_points": desc.n_points,
+            "engine": engine, "model_points": desc.n_points,
             "occupied_keys": int((desc.table.counts > 0).sum()),
             "votes": total, "bit": bit, "trans_err": v.trans_err,
             "rot_err_deg": math.degrees(v.rot_err),
             "occlusion_pct": truths[name][1], "match_ms": r["ms"],
             "k1_launches": r["k1"], "k2_launches": r["k2"],
             "topk_saturated": bool(res.topk_saturated)}
+    return per_model
+
+
+def uwa_cli(dev, workdir):
+    """Phase 8: the CLI on UWA-analog scene 1. Returns the numbers (the
+    CLI's peak device memory among them), the kernel launches of the call,
+    what uwa_files returns, the per-model match records, and para's keys,
+    caps and K2 arguments. Each model's kernel is held against its plain
+    version on the model's own scene keys."""
+    files = uwa_files(workdir)
+    argv, names, truths, diams, n_vox, capacity, _ = files
+    rc, bits, records, launches, (resident_gib, peak_gib), _ = traced_cli(
+        argv, dev)
+    check(rc == 0, f"CLI exit code {rc}")
+    check(len(names) == 4, "four models")
+    per_model = cli_models(names, bits, records, truths, diams)
     for name in ("trex", "para"):
         check(per_model[name]["engine"] == "fallback (K2)",
               f"{name} has no block tables")
@@ -559,31 +733,368 @@ def uwa_cli(dev, workdir):
               f"{name} has block tables")
         check(per_model[name]["k1_launches"] >= 1, f"{name} launched K1")
     check(launches["fast_tally"] >= 2, "K2 launched at least twice")
-    for name in ("chef", "trex", "chicken"):
-        check(per_model[name]["bit"] == 1,
-              f"{name} matches, as in the JAX package ({per_model[name]})")
+    check(bits == JAX_CPU_BITS["base"],
+          f"bits {bits} as the JAX package prints them")
 
-    # Para's own per-pair arrays, for K2 against its plain version.
-    r = records[names.index("para")]
-    desc, cfg = r["desc"], r["cfg"]
-    ref_idx = torch.arange(0, r["sp"].shape[0], cfg.ref_point_df,
-                           device=r["sp"].device)
-    keys, alpha = ppf.pairwise_ppf_keys(r["sp"], r["sn"], desc.d_dist,
-                                        cfg.d_angle, desc.max_dist_bin,
-                                        ref_indices=ref_idx)
-    vote_cap = drost._next_cap(per_model["para"]["votes"]
-                               + voting_fast.TALLY_CHUNK * len(ref_idx))
-    vote_cap = voting_fast._ceil_to(vote_cap, voting_fast.TALLY_CHUNK)
-    pl = voting_fast._pair_lookup(keys, alpha, desc.fast_tables, vote_cap)
+    # K1 on chef's and chicken's own keys, K2 on trex's and para's.
+    for name, r in zip(names, records):
+        kernel, k_args, err, keys, alpha, caps = hold_scene(
+            r["desc"], r["sp"], r["sn"], r["cfg"], f"uwa-cli {name}")
+        check(kernel == ("fast_tally" if name in ("trex", "para")
+                         else "block_tally"), f"{name}: held {kernel}")
+        if name == "para":
+            cnt, vote_cap = k_args[0], k_args[7]
+            para = dict(desc=r["desc"], cfg=r["cfg"], keys=keys, alpha=alpha,
+                        k2_args=k_args, k2_err=err, vote_cap=vote_cap,
+                        sp=r["sp"], sn=r["sn"], res=r["res"])
+        del k_args
     numbers = {"bits": dict(zip(names, bits)), "scene_voxels": n_vox,
-               "scene_capacity": capacity, "reference_rows": len(ref_idx),
-               "para_vote_cap": vote_cap, "para_total_p": int(pl.total_p),
-               "para_scene_pairs": int(pl.cnt.numel()),
-               "para_pairs_with_votes": int((pl.cnt > 0).sum()),
-               "peak_mem_gib": peak_gib, "models": per_model}
-    para = dict(desc=desc, cfg=cfg, keys=keys, alpha=alpha, pl=pl,
-                vote_cap=vote_cap, n=keys.shape[1])
-    return numbers, launches, argv, para
+               "scene_capacity": capacity,
+               "reference_rows": int(para["keys"].shape[0]),
+               "para_vote_cap": vote_cap,
+               "para_scene_pairs": int(cnt.numel()),
+               "para_pairs_with_votes": int((cnt > 0).sum()),
+               "resident_gib": resident_gib, "peak_mem_gib": peak_gib,
+               "models": per_model}
+    return numbers, launches, files, dict(zip(names, records)), para
+
+
+def marginals_and_transport(corr_acc, exact_acc, n_angle):
+    """The two checks that tie the correlation accumulator to an exact
+    one: per (row, model point) the same total, and no vote more than one
+    α bin off: corr[a] <= exact[a-1] + exact[a] + exact[a+1], cyclically
+    over the n_angle bins (and the other way round)."""
+    c = corr_acc[:, :, :n_angle].to(torch.int64)
+    e = exact_acc[:, :, :n_angle].to(torch.int64)
+    check(int(exact_acc[:, :, n_angle:].sum()) == 0
+          and int(corr_acc[:, :, n_angle:].sum()) == 0,
+          "no vote past the last α bin")
+    check(torch.equal(c.sum(dim=2), e.sum(dim=2)),
+          "correlation engine: α marginals equal the exact engine's")
+    blur_e = torch.roll(e, 1, 2) + e + torch.roll(e, -1, 2)
+    blur_c = torch.roll(c, 1, 2) + c + torch.roll(c, -1, 2)
+    check(bool((c <= blur_e).all()) and bool((e <= blur_c).all()),
+          "correlation engine: no vote moved more than one α bin")
+    return int((c - e).abs().sum()) // 2
+
+
+def corr_bench(dev, inputs, st):
+    """Phase 9: the correlation engine on the bench scan. Returns its
+    numbers, the launches of its match() call and what `times` reuses."""
+    import objective_slam_tpu_torch as pt
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
+        voting_block, voting_corr
+    from objective_slam_tpu_torch.utils import pointcloud as pc, validation
+
+    cfg_corr = pt.PPFConfig(max_poses=512, ref_point_df=5,
+                            engine="correlation", refine_icp=True,
+                            icp_iterations=20)
+    # engine="correlation" builds the block tables and the correlation
+    # tables (bench.py:255-257).
+    desc = pt.build_model_description(inputs["mp"], inputs["mn"], cfg_corr,
+                                      d_dist=inputs["d_dist"], device=dev)
+    check(desc.fast_tables.block is not None and desc.corr_tables is not None,
+          "correlation description carries block and correlation tables")
+    keys, alpha, n_model = st["keys"], st["alpha"], desc.n_points
+    tables = desc.corr_tables
+    corr = voting_corr.cast_votes_corr(keys, alpha, tables, n_model)
+    exact = voting_block.cast_votes_block(
+        keys, alpha, desc.fast_tables.block, n_model, cfg_corr.d_angle,
+        st["cap"], seg_cap=st["seg_cap"])
+    check(int(corr.num_votes) == int(exact.num_votes) == BENCH_VOTES,
+          f"correlation engine counts {BENCH_VOTES} votes, got "
+          f"{int(corr.num_votes)}")
+    check(not bool(corr.overflowed), "no overflow at the default runs_cap")
+    check(int(corr.accumulator.sum(dtype=torch.int64)) == BENCH_VOTES,
+          "correlation accumulator holds every vote")
+    moved = marginals_and_transport(corr.accumulator, exact.accumulator,
+                                    cfg_corr.n_angle)
+    del exact
+
+    R = keys.shape[0]
+    cells_per_row = (tables.k_occ + 1) * cfg_corr.n_angle
+    small = voting_corr.cast_votes_corr(keys, alpha, tables, n_model,
+                                        runs_cap=1024)
+    check(bool(small.overflowed), "runs_cap 1024 sets overflowed")
+    del small
+    # A chunk budget of about a sixth of the dense histogram: the chunked
+    # path, same accumulator and flags.
+    budget = cells_per_row * 4 * (-(-R // 6))
+    chunked = voting_corr.cast_votes_corr(keys, alpha, tables, n_model,
+                                          chunk_budget_bytes=budget)
+    check(not bool(chunked.overflowed)
+          and int(chunked.num_votes) == BENCH_VOTES
+          and torch.equal(chunked.accumulator, corr.accumulator),
+          "chunked path equals the single-chunk path")
+    del chunked
+
+    sp, sn, truths = inputs["scenes"][SEED]
+    vox = pc.voxel_downsample(sp, sn, inputs["d_dist"],
+                              capacity=inputs["vox_capacity"])
+    # The retry ladder from a cap too small, without ICP: same accumulator,
+    # and a runs_cap that holds the scene.
+    cfg_ladder = pt.PPFConfig(max_poses=512, ref_point_df=5,
+                              engine="correlation")
+    res_l, caps_l = drost._match_sized_caps(desc, vox.points, vox.normals,
+                                            cfg_ladder, runs_cap=1024)
+    check(not bool(res_l.overflowed) and caps_l.runs_cap > 1024
+          and caps_l.vote_cap == 0, f"retry ladder ends clear ({caps_l})")
+    check(torch.equal(res_l.accumulator, corr.accumulator),
+          "retry ladder ends with the same accumulator")
+    held = voting_corr.cast_votes_corr(keys, alpha, tables, n_model,
+                                       runs_cap=caps_l.runs_cap)
+    below = voting_corr.cast_votes_corr(keys, alpha, tables, n_model,
+                                        runs_cap=caps_l.runs_cap // 2)
+    check(not bool(held.overflowed), "the ladder's runs_cap holds the scene")
+    check(bool(below.overflowed),
+          "the ladder stopped at the first rung that holds: half its "
+          "runs_cap, the rung before, overflows")
+    del res_l, held, below
+
+    block_tally.launches = fast_tally.launches = 0
+    res = pt.match(desc, vox.points, vox.normals, cfg_corr,
+                   icp_points=sp[::8], icp_normals=sn[::8])
+    sync(dev)
+    launches = {"block_tally": block_tally.launches,
+                "fast_tally": fast_tally.launches}
+    check(not bool(res.overflowed) and int(res.num_votes) == BENCH_VOTES,
+          "match() with the correlation engine casts every vote")
+    vs = [validation.validate_pose(res.pose.cpu(), T, desc.diameter,
+                                   cfg_corr) for T in truths]
+    v = min(vs, key=lambda v: v.rot_err + (0.0 if v.match else 1e3))
+    check(v.match, f"correlation winner localizes an instance ({v})")
+    out = {
+        "num_votes": int(corr.num_votes), "k_occ": tables.k_occ,
+        "histogram_bytes": R * cells_per_row * 4,
+        "m3_dup_bytes": tables.m3_dup.numel() * 4,
+        "votes_one_bin_off": moved,
+        "share_one_bin_off": moved / BENCH_VOTES,
+        "ladder_runs_cap": caps_l.runs_cap,
+        "chunk_budget_bytes": budget,
+        "pose_match_corr": bool(v.match), "trans_err": v.trans_err,
+        "rot_err_corr_deg": math.degrees(v.rot_err),
+        "topk_saturated": bool(res.topk_saturated)}
+    return out, launches, dict(desc=desc, cfg=cfg_corr, vox=vox)
+
+
+def est_normals(dev, inputs, cfg):
+    """Phase 10: the bench's estimated-normals run (bench.py:442-518).
+    Model normals by estimate_normals_grid(orient="outward"), scene normals
+    of a partial view by orient="viewpoint", both on the card; voxel grid,
+    then _match_core at sized caps with ICP against every second raw
+    point."""
+    import objective_slam_tpu_torch as pt
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
+        voting_block
+    from objective_slam_tpu_torch.utils import pointcloud as pc, synthetic, \
+        validation
+
+    mp_raw, d_dist = inputs["mp_raw"], inputs["d_dist"]
+    sp0, sn0, truths = inputs["scenes"][SEED]
+    sp0_h, sn0_h = sp0.cpu().numpy(), sn0.cpu().numpy()
+    viewpoint = np.array([0.0, -14.0, 7.0], np.float32)
+    vis_p = np.asarray(sp0_h[synthetic.partial_view(sp0_h, sn0_h, viewpoint)],
+                       np.float32)
+    radius = 0.6 * float(d_dist)
+
+    def dims_of(p):
+        return tuple(int(d) + 1 for d in np.floor(
+            (p.max(axis=0) - p.min(axis=0)) / radius).astype(np.int64))
+
+    mn_est = pc.estimate_normals_grid(mp_raw, radius, orient="outward",
+                                      dims=dims_of(mp_raw), device=dev)
+    mp_e, mn_e = pc.voxel_downsample_np(mp_raw, mn_est.cpu().numpy(), d_dist)
+    desc = pt.build_model_description(mp_e, mn_e, cfg, d_dist=d_dist,
+                                      device=dev)
+    dims = dims_of(vis_p)
+    vis_dev = torch_from(vis_p, dev)
+
+    def normals(p, device=None):
+        return pc.estimate_normals_grid(p, radius, viewpoint=viewpoint,
+                                        orient="viewpoint", dims=dims,
+                                        device=device)
+
+    vis_occ = int(pc.voxel_downsample(vis_dev, torch.zeros_like(vis_dev),
+                                      d_dist, capacity=len(vis_p)).num_voxels)
+    vis_cap = ((int(vis_occ * 1.15) + 127) // 128) * 128
+    nrm = normals(vis_dev)
+    vox = pc.voxel_downsample(vis_dev, nrm, d_dist, capacity=vis_cap)
+    check(not bool(vox.dropped), "est-normals voxel capacity holds the view")
+    total, rows, segs = drost._count_votes(desc, vox.points, vox.normals,
+                                           cfg.ref_point_df, cfg.d_angle)
+    n_ref = (vis_cap + cfg.ref_point_df - 1) // cfg.ref_point_df
+    cap = drost._next_cap((rows + voting_block.CHUNK_ROWS * n_ref) * 128)
+    seg_cap = drost._next_cap(max(segs, 1024))
+
+    def run(raw_p):
+        vox = pc.voxel_downsample(raw_p, normals(raw_p), d_dist,
+                                  capacity=vis_cap)
+        return drost._match_core(desc, vox.points, vox.normals,
+                                 ref_point_df=cfg.ref_point_df, vote_cap=cap,
+                                 config=cfg, icp_points=raw_p[::2],
+                                 seg_cap=seg_cap)
+
+    block_tally.launches = fast_tally.launches = 0
+    res = run(vis_dev)
+    sync(dev)
+    launches = {"block_tally": block_tally.launches,
+                "fast_tally": fast_tally.launches}
+    check(launches["block_tally"] >= 1, "est-normals path launched K1")
+    check(not bool(res.overflowed) and int(res.num_votes) == total,
+          "est-normals run casts every counted vote")
+    vs = [validation.validate_pose(res.pose.cpu(), T, desc.diameter, cfg)
+          for T in truths]
+    v = min(vs, key=lambda v: v.rot_err + (0.0 if v.match else 1e3))
+    check(v.match, f"est-normals winner localizes an instance ({v})")
+    # K1 on this path's own keys and caps (the voxel grid of `run`).
+    kernel = hold_scene(desc, vox.points, vox.normals, cfg, "est-normals",
+                        caps=drost.MatchCaps(cap, seg_cap, None,
+                                             cfg.max_poses))[0]
+    check(kernel == "block_tally", "est-normals held K1")
+
+    # The card's normals against the same function on the CPU.
+    nrm_cpu = normals(torch.from_numpy(vis_p), device="cpu")
+    cos = (nrm.cpu().double() * nrm_cpu.double()).sum(dim=1).clamp(-1, 1)
+    ang = torch.rad2deg(torch.arccos(cos))
+    outside = float((ang > NORMALS_TOL_DEG).double().mean())
+    check(outside <= NORMALS_OUTSIDE,
+          f"card normals within {NORMALS_TOL_DEG} deg of the CPU's for all "
+          f"but {NORMALS_OUTSIDE} of the points, got {outside}")
+    out = {"visible_points": len(vis_p), "model_points": desc.n_points,
+           "grid_dims": list(dims), "radius": radius,
+           "voxels": int(vox.num_voxels), "voxel_capacity": vis_cap,
+           "num_votes": total, "vote_cap": cap, "seg_cap": seg_cap,
+           "match": bool(v.match), "trans_err": v.trans_err,
+           "rot_err_deg": math.degrees(v.rot_err),
+           "normals_vs_cpu_median_deg": float(ang.median()),
+           "normals_vs_cpu_p99_deg": float(torch.quantile(ang, 0.99)),
+           "normals_vs_cpu_max_deg": float(ang.max()),
+           "normals_vs_cpu_share_over_tol": outside}
+    return out, launches, dict(run=run, normals=normals, vis_dev=vis_dev)
+
+
+def fnv_against_packed(desc, sp, sn, cfg, dev, label):
+    """One model through use_fnv_keys and through packed keys, both at
+    sized caps: bit-equal accumulators where the model's occupied keys hash
+    without collision, else the conflated buckets are printed and the vote
+    total is held against the FNV-mode count pass. The kernel of the
+    FNV-mode run is held against its plain version on that run's keys.
+    Returns the numbers and the launches of the FNV-mode run."""
+    import dataclasses
+
+    import objective_slam_tpu_torch as pt
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally
+
+    cfg = dataclasses.replace(cfg, refine_icp=False, use_fnv_keys=False)
+    cfg_f = dataclasses.replace(cfg, use_fnv_keys=True)
+    desc_f = pt.build_model_description(desc.points, desc.normals, cfg_f,
+                                        d_dist=desc.d_dist, device=dev)
+    occupied = int((desc.table.counts > 0).sum())
+    k_occ = desc_f.fnv_remap.k_occ
+    res_p = drost._match_sized_caps(desc, sp, sn, cfg)[0]
+    block_tally.launches = fast_tally.launches = 0
+    res_f, caps_f = drost._match_sized_caps(desc_f, sp, sn, cfg_f)
+    sync(dev)
+    launches = {"block_tally": block_tally.launches,
+                "fast_tally": fast_tally.launches}
+    total_f = drost._count_votes(desc_f, sp, sn, cfg.ref_point_df,
+                                 cfg.d_angle)[0]
+    check(int(res_f.num_votes) == total_f and not bool(res_f.overflowed),
+          "FNV mode casts every vote its count pass counts")
+    # The kernel on the FNV-rank keys and the caps of that run.
+    hold_scene(desc_f, sp, sn, cfg_f, label, caps=caps_f)
+    if k_occ == occupied:
+        check(torch.equal(res_f.accumulator, res_p.accumulator),
+              "FNV-mode accumulator equals the packed-key one")
+        check(int(res_f.num_votes) == int(res_p.num_votes),
+              "FNV-mode vote total equals the packed-key one")
+    else:
+        print(f"  FNV collisions: {occupied} occupied packed keys share "
+              f"{k_occ} hash buckets; votes {total_f} against "
+              f"{int(res_p.num_votes)} with packed keys")
+    return {"occupied_packed_keys": occupied, "fnv_k_occ": k_occ,
+            "collision_free": k_occ == occupied,
+            "votes": total_f, "votes_packed": int(res_p.num_votes),
+            "match_caps": list(caps_f),
+            "engine": "fallback (K2)" if desc_f.fast_tables.block is None
+            else "block (K1)"}, launches
+
+
+def uwa_cli_modes(dev, files, base):
+    """Phase 12: the other CLI calls on the files of `uwa-cli`. After each
+    call, every model that went through K1 or K2 has that kernel held
+    against its plain version on its own scene keys."""
+    from objective_slam_tpu_torch.utils import ply
+
+    argv, names, truths, diams, n_vox, _, modes = files
+    out, launches_by_mode = {}, {}
+    records = per_model = r = None
+    for mode in ("corr", "fnv", "normals", "normals_mesh"):
+        # The last call's results are freed before this call's memory is
+        # read.
+        del records, per_model, r
+        rc, bits, records, launches, (resident_gib, peak_gib), ms = \
+            traced_cli(modes[mode], dev)
+        check(rc == 0, f"{mode}: CLI exit code {rc}")
+        per_model = cli_models(names, bits, records, truths, diams)
+        if mode not in BITS_NOT_HELD:
+            check(bits == JAX_CPU_BITS[mode], f"{mode}: bits {bits}, the "
+                  f"JAX package prints {JAX_CPU_BITS[mode]}")
+        out[mode] = {"bits": dict(zip(names, bits)),
+                     "jax_cpu_bits": dict(zip(names, JAX_CPU_BITS[mode])),
+                     "first_call_ms": ms, "resident_gib": resident_gib,
+                     "peak_mem_gib": peak_gib, "launches": launches,
+                     "models": per_model}
+        launches_by_mode[mode] = launches
+        for name, r in zip(names, records):
+            if r["k1"] + r["k2"] > 0:
+                kernel = hold_scene(r["desc"], r["sp"], r["sn"], r["cfg"],
+                                    f"uwa-cli-{mode} {name}")[0]
+                check((r["k1"] > 0) == (kernel == "block_tally"),
+                      f"{mode} {name}: held the kernel it launched")
+        if mode == "corr":
+            for name, r in zip(names, records):
+                check(per_model[name]["engine"] == "correlation"
+                      and r["cfg"].rescore_poses
+                      and r["cfg"].icp_point_to_plane,
+                      f"{name}: correlation engine with rescoring")
+            check(launches == {"block_tally": 0, "fast_tally": 0},
+                  "the correlation engine launches neither tally kernel")
+            out[mode]["scene_capacity"] = int(records[0]["sp"].shape[0])
+        if mode == "fnv":
+            check(bits == [base["models"][n]["bit"] for n in names],
+                  "--use_fnv_keys prints uwa-cli's bits")
+            for name, r in zip(names, records):
+                occupied = base["models"][name]["occupied_keys"]
+                k_occ = r["desc"].fnv_remap.k_occ
+                per_model[name]["fnv_k_occ"] = k_occ
+                if k_occ == occupied:
+                    check(per_model[name]["votes"]
+                          == base["models"][name]["votes"],
+                          f"{name}: FNV-mode votes equal packed-key votes")
+            check(launches["block_tally"] >= 2 and launches["fast_tally"] >= 2,
+                  f"--use_fnv_keys went through K1 and K2 ({launches})")
+        if mode in ("normals", "normals_mesh"):
+            vis = pathlib.Path(modes[mode][modes[mode].index(
+                "--visualize_out") + 1])
+            cloud = ply.read_ply(str(vis) + ".ply")
+            n_models = sum(r["desc"].n_points for r in records)
+            check(len(cloud.points) == n_vox + n_models,
+                  f"visualization PLY holds {n_vox} scene voxels and "
+                  f"{n_models} model points, no pad row "
+                  f"({len(cloud.points)})")
+            check(bool(np.all(np.abs(cloud.points) < 1e4)),
+                  "no far-sentinel row in the visualization")
+            html = pathlib.Path(str(vis) + ".html")
+            check(html.exists() and "model3@scene0" in html.read_text(),
+                  "HTML viewer written with every posed model")
+            out[mode]["visualization_points"] = len(cloud.points)
+            out[mode]["png_written"] = pathlib.Path(str(vis)
+                                                    + ".png").exists()
+    return out, launches_by_mode
 
 
 def sync(dev):
@@ -651,24 +1162,19 @@ def main() -> int:
         print("main path: " + json.dumps(numbers))
 
     with Phase("k1-bench"):
-        src_row, alpha_row, row_start_p = st["expanded"][:3]
-        live = st["expanded"][5]
-        pair2d = st["desc"].fast_tables.block.pair2d
-        k1_args = (pair2d, src_row, alpha_row, row_start_p, live)
         n_model, n_angle = st["desc"].n_points, st["cfg"].n_angle
-        got = block_tally.block_tally(*k1_args, n_model, n_angle)
-        want = block_tally.block_tally_plain(*k1_args, n_model, n_angle)
-        k1_err = int((got - want).abs().max())
-        check(k1_err == 0, "K1 bit-equal at bench scale")
-        check(int(got.sum(dtype=torch.int64)) == numbers["num_votes"],
-              "K1 tallies every vote")
+        _, k1_args, _ = hold_kernel(st["desc"], st["keys"], st["alpha"],
+                                    n_angle, st["cap"], st["seg_cap"],
+                                    "main (bench-seed0)")
+        pair2d, src_row, alpha_row, row_start_p, live = k1_args
+        check(HOLDS[-1]["votes"] == numbers["num_votes"],
+              "K1 tallies every vote of the main path")
         k1_cluster = block_tally.cluster_size(src_row.shape[0],
                                               row_start_p.shape[0])
         print(f"k1 bench shape: pair2d {tuple(pair2d.shape)}, src_row "
               f"{tuple(src_row.shape)}, live rows {int(live)}, R "
               f"{row_start_p.shape[0]}, n_model {n_model}, cluster "
               f"{k1_cluster}, votes {numbers['num_votes']}")
-        del got, want
 
     with Phase("k2-bench"):
         desc, cfg = st["desc"], st["cfg"]
@@ -694,20 +1200,13 @@ def main() -> int:
         del fast, block
 
     with Phase("uwa-cli"):
-        uwa, launches_uwa, uwa_argv, para = uwa_cli(
+        uwa, launches_uwa, uwa_fileset, uwa_records, para = uwa_cli(
             dev, ROOT / "build" / "uwa_cli")
-        pl, p_desc, p_cfg = para["pl"], para["desc"], para["cfg"]
+        uwa_argv = uwa_fileset[0]
+        p_desc, p_cfg = para["desc"], para["cfg"]
         p_n, p_tables = p_desc.n_points, p_desc.fast_tables
-        k2_args = (pl.cnt, pl.off, pl.alpha_fix, pl.row_start_p, pl.row_tot,
-                   p_tables, para["n"], para["vote_cap"])
-        got = fast_tally.fast_tally(*k2_args, p_n, p_cfg.n_angle)
-        want = fast_tally.fast_tally_plain_pairs(*k2_args, p_n,
-                                                 p_cfg.n_angle)
-        k2_err = int((got - want).abs().max())
-        check(k2_err == 0, "K2 bit-equal on para's per-pair arrays")
+        k2_args = para["k2_args"]
         p_votes = uwa["models"]["para"]["votes"]
-        check(int(got.sum(dtype=torch.int64)) == p_votes,
-              "K2 tallies every para vote")
         # The unpacked tables' float32 α_m rounding, at para's scale.
         unpacked = voting_fast.build_fast_tables(p_desc.table,
                                                  force_unpacked=True)
@@ -717,9 +1216,38 @@ def main() -> int:
                           fast_tally.fast_tally_plain_pairs(*args_u)),
               "K2 bit-equal on para's unpacked tables")
         uwa["para_cluster"] = fast_tally.cluster_size(para["vote_cap"],
-                                                      pl.row_start_p.numel())
-        del got, want, unpacked
+                                                      k2_args[3].numel())
+        del unpacked
         print("uwa-cli: " + json.dumps(uwa))
+
+    with Phase("corr-bench"):
+        corr_numbers, launches_corr, corr_st = corr_bench(dev, inputs, st)
+        print("corr-bench: " + json.dumps(corr_numbers))
+
+    with Phase("est-normals"):
+        est_numbers, launches_est, est_st = est_normals(dev, inputs,
+                                                        st["cfg"])
+        print("est-normals: " + json.dumps(est_numbers))
+
+    with Phase("fnv"):
+        vox = corr_st["vox"]
+        fnv_bench, launches_fnv_bench = fnv_against_packed(
+            st["desc"], vox.points, vox.normals, st["cfg"], dev,
+            "fnv bench-seed0")
+        check(launches_fnv_bench["block_tally"] >= 1,
+              "FNV mode on the bench scan launched K1")
+        r = uwa_records["trex"]
+        fnv_trex, launches_fnv_trex = fnv_against_packed(
+            r["desc"], r["sp"], r["sn"], r["cfg"], dev, "fnv trex")
+        check(launches_fnv_trex["fast_tally"] >= 1,
+              "FNV mode on trex launched K2")
+        print("fnv: " + json.dumps({
+            "bench": fnv_bench, "bench_launches": launches_fnv_bench,
+            "trex": fnv_trex, "trex_launches": launches_fnv_trex}))
+
+    with Phase("uwa-cli-modes"):
+        modes_numbers, launches_modes = uwa_cli_modes(dev, uwa_fileset, uwa)
+        print("uwa-cli-modes: " + json.dumps(modes_numbers))
 
     with Phase("times"):
         cap, seg_cap = st["cap"], st["seg_cap"]
@@ -771,8 +1299,52 @@ def main() -> int:
         def cli_call():
             check(run_cli(uwa_argv, dev)[0] == 0, "CLI exit code")
 
+        # The new paths' stages.
+        from objective_slam_tpu_torch.ops import verify_pose, voting_corr
+        from objective_slam_tpu_torch.utils import ply
+        c_desc, c_cfg = corr_st["desc"], corr_st["cfg"]
+        para_corr = voting_corr.build_corr_tables(p_desc.table, p_n,
+                                                  p_cfg.n_angle)
+        cand = para["res"].poses
+        cand_ok = torch.ones(len(cand), dtype=torch.bool, device=dev)
+        raw_uwa = torch_from(ply.read_ply(
+            uwa_argv[uwa_argv.index("--scene_files") + 1]).points, dev)
+        uwa_modes = uwa_fileset[6]
+
+        def corr_bench_votes():
+            return voting_corr.cast_votes_corr(
+                st["keys"], st["alpha"], c_desc.corr_tables,
+                c_desc.n_points).accumulator
+
+        def corr_para_votes():
+            return voting_corr.cast_votes_corr(
+                para["keys"], para["alpha"], para_corr, p_n).accumulator
+
+        def rescoring_para():
+            return verify_pose.inlier_scores(
+                cand, cand_ok, p_desc.points, para["sp"], p_desc.d_dist,
+                model_normals=p_desc.normals, scene_normals=para["sn"])
+
+        def normals_grid():
+            return est_st["normals"](est_st["vis_dev"])
+
+        def normals_knn():
+            return pc.estimate_normals_knn(raw_uwa, k=16, orient="outward")
+
+        def e2e_corr():
+            vox = pc.voxel_downsample(sp, sn, d_dist, capacity=cap_vox)
+            return drost._match_core(
+                c_desc, vox.points, vox.normals,
+                ref_point_df=c_cfg.ref_point_df, vote_cap=0, config=c_cfg,
+                icp_points=sp[::8], icp_normals=sn[::8]).pose
+
+        def e2e_est():
+            return est_st["run"](est_st["vis_dev"]).pose
+
         for fn in (k1, k1_plain, k1_gather, k2, k2_plain, e2e_fixed,
-                   voting_only, sized, para_votes, para_expand):
+                   voting_only, sized, para_votes, para_expand,
+                   corr_bench_votes, corr_para_votes, rescoring_para,
+                   normals_grid, normals_knn, e2e_corr, e2e_est):
             fn()                                    # warm-up
         torch.cuda.synchronize()
         # Kernel and plain version in turns: plain, kernel, kernel, plain.
@@ -803,8 +1375,40 @@ def main() -> int:
             "uwa_cli_ms": statistics.median(host_ms(cli_call, 3)),
             "peak_mem_gib": peak_main,
             "uwa_cli_peak_mem_gib": uwa["peak_mem_gib"],
+            "cast_votes_corr_bench_ms": statistics.median(
+                event_ms(corr_bench_votes, 5)),
+            "cast_votes_corr_para_ms": statistics.median(
+                event_ms(corr_para_votes, 3)),
+            "inlier_scores_para_ms": statistics.median(
+                event_ms(rescoring_para, 3)),
+            "inlier_scores_para_poses": len(cand),
+            "estimate_normals_grid_ms": statistics.median(
+                event_ms(normals_grid, 10)),
+            "estimate_normals_knn_26k_ms": statistics.median(
+                event_ms(normals_knn, 3)),
+            "e2e_corr_pose_ms": statistics.median(host_ms(e2e_corr, 5)),
+            "e2e_est_normals_ms": statistics.median(host_ms(e2e_est, 5)),
         }
+        for mode, argv_m in uwa_modes.items():
+            times[f"uwa_cli_{mode}_ms"] = statistics.median(host_ms(
+                lambda: check(run_cli(argv_m, dev)[0] == 0, "CLI exit code"),
+                2))
+            times[f"uwa_cli_{mode}_peak_mem_gib"] = \
+                modes_numbers[mode]["peak_mem_gib"]
         print(f"times on {card}: " + json.dumps(times))
+        # Device time of the correlation vote pass and the share of it that
+        # the matrix products take.
+        for label, fn in (("bench", corr_bench_votes),
+                          ("para", corr_para_votes)):
+            rows, total = top_kernels(fn, n=1000)
+            gemm = sum(ms for name, _, ms in rows
+                       if not name.startswith("aten::")
+                       and any(k in name.lower() for k in
+                               ("gemm", "cutlass", "cublas", "xmma")))
+            print(f"profile, cast_votes_corr at {label}: device "
+                  f"{total:.3f} ms, matrix products {gemm:.3f} ms "
+                  f"({gemm / max(total, 1e-9):.3f}); "
+                  + json.dumps(rows[:8]))
         # Per-block balance: each kernel's device time at every cluster size
         # (blocks per reference row), at bench-seed0 and at para.
         bench_cap = voting_fast._ceil_to(fast_cap, voting_fast.TALLY_CHUNK)
@@ -834,8 +1438,12 @@ def main() -> int:
         print(f"cluster sweep on {card} (kernel ms by blocks per row; the "
               f"wrapper picks {picked}): " + json.dumps(sweep))
         del plb, k2b_args
+        def cli_corr_call():
+            check(run_cli(uwa_modes["corr"], dev)[0] == 0, "CLI exit code")
+
         for label, fn in (("para cast_votes_fast", para_votes),
-                          ("uwa-cli call", cli_call)):
+                          ("uwa-cli call", cli_call),
+                          ("uwa-cli-modes corr call", cli_corr_call)):
             rows, total = top_kernels(fn)
             print(f"profile, {label}: device {total:.3f} ms; "
                   + json.dumps(rows))
@@ -849,11 +1457,27 @@ def main() -> int:
     k1_bytes = (int(live) * 8 + pair2d.numel() * 4 + R1 * 4
                 + R1 * n_model * 32 * 4)
     k1_bound = bound(k1_bytes, numbers["num_votes"])
-    R2 = pl.row_start_p.shape[0]
+    R2 = k2_args[3].shape[0]
     table2 = p_tables.pair_packed
-    k2_bytes = (pl.cnt.numel() * 4 + uwa["para_pairs_with_votes"] * 8
+    k2_bytes = (k2_args[0].numel() * 4 + uwa["para_pairs_with_votes"] * 8
                 + table2.numel() * 4 + R2 * 8 + R2 * p_n * 32 * 4)
     k2_bound = bound(k2_bytes, p_votes)
+    def by_path(kernel):
+        """The kernel's launches on each driven path, the counts set to 0
+        just before the path and read just after."""
+        paths = {"main": launches_main, "uwa-cli": launches_uwa,
+                 "corr-bench": launches_corr, "est-normals": launches_est,
+                 "fnv-bench": launches_fnv_bench,
+                 "fnv-trex": launches_fnv_trex}
+        paths.update({f"uwa-cli-{m}": l for m, l in launches_modes.items()})
+        return {name: l[kernel] for name, l in paths.items()}
+
+    # Every comparison of a kernel with its plain version on a driven
+    # path's own inputs; each raised on a difference.
+    print("holds: " + json.dumps(HOLDS))
+    k1_err, k2_err = (max(h["max_abs_err"] for h in HOLDS
+                          if h["kernel"] == k)
+                      for k in ("block_tally", "fast_tally"))
     print("bounds: " + json.dumps({
         "k1_bytes": k1_bytes, "k1_l2_pair_row_bytes": int(live) * 512,
         "k2_bytes": k2_bytes, "k2_l2_pair_word_bytes": p_votes * 4}))
@@ -862,8 +1486,7 @@ def main() -> int:
         "source": "objective_slam_tpu_torch/csrc/block_tally.cu",
         "replaces": "objective_slam_tpu/ops/voting_block.py:590",
         "launches": launches_main["block_tally"],
-        "launches_by_path": {"main": launches_main["block_tally"],
-                             "uwa-cli": launches_uwa["block_tally"]},
+        "launches_by_path": by_path("block_tally"),
         "max_abs_err": k1_err, "bitequal": True,
         "ms": times["k1_kernel_ms"], "event_ms": times["k1_ms"],
         "plain_ms": times["k1_plain_ms"],
@@ -874,8 +1497,7 @@ def main() -> int:
         "source": "objective_slam_tpu_torch/csrc/fast_tally.cu",
         "replaces": "objective_slam_tpu/ops/voting_fast.py:466",
         "launches": launches_uwa["fast_tally"],
-        "launches_by_path": {"main": launches_main["fast_tally"],
-                             "uwa-cli": launches_uwa["fast_tally"]},
+        "launches_by_path": by_path("fast_tally"),
         "max_abs_err": k2_err, "bitequal": True,
         "ms": times["k2_kernel_ms"], "event_ms": times["k2_ms"],
         "plain_ms": times["k2_plain_ms"],

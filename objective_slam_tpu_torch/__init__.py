@@ -12,15 +12,20 @@ Layout (same module and function names as the JAX package):
                              block-expansion engine of the main path
   ops/voting_fast            the fallback engine for models over the
                              block budgets
+  ops/voting_corr            the correlation engine (matrix products only,
+                             α within one bin)
+  ops/hashing                FNV-1a hashes and the FNV keying mode
+  ops/verify_pose            inlier rescoring of candidate poses
   ops/block_tally            kernel K1 (csrc/block_tally.cu) + plain twin
   ops/fast_tally             kernel K2 (csrc/fast_tally.cu) + plain twin
   ops/clustering, ops/icp    pose clustering, ICP refinement
   models/drost               ModelDescription, match, match_with_state
   pipeline, cli              ppf_registration and the `alignment` CLI
                              (python -m objective_slam_tpu_torch.cli)
-  utils/                     voxel grid, PLY files, synthetic scenes,
-                             validation, loading descriptions saved by the
-                             JAX package
+  utils/                     voxel grid, normal estimation, PLY and STL
+                             files, synthetic scenes, validation, the HTML
+                             viewer, description files shared with the JAX
+                             package
 """
 
 import torch as _torch

@@ -1,21 +1,19 @@
 """Command-line registration app — the `alignment` binary, on the port.
 
-Port of ``objective_slam_tpu.cli`` (cli.py:30-328): the same flags with the
+Port of ``objective_slam_tpu.cli`` (cli.py:30-418): the same flags with the
 same defaults (the reference's configure_options, alignment.cpp:119-172)
 and the same flow (main, :191-398): load PLYs -> model diameters -> voxel
 grid -> ppf_registration -> ground-truth validation, printing a bare 0/1
-match bit per (scene, model) pair on stdout (alignment.cpp:332). The log
-lines are the JAX package's, which tools/analyze_uwa.py parses.
+match bit per (scene, model) pair on stdout (alignment.cpp:332) -> optional
+visualization, exported as a colored PLY, an HTML viewer and a PNG instead
+of a PCLVisualizer window. The log lines are the JAX package's, which
+tools/analyze_uwa.py parses.
 
 Usage:
   python -m objective_slam_tpu_torch.cli --scene_files s.ply \\
       --model_files m.ply --tau_d 0.1 [--validation_files t.txt] ...
 
-It runs on the CUDA device `--dev` (clamped to the device count). Not
-ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: --visualize true (queue 1 item 18), --estimate_normals_k > 0 and
---smooth_normals > 0 (item 9), --engine correlation (13), --use_fnv_keys
-true (12) and --rescore_poses true (7).
+It runs on the CUDA device `--dev` (clamped to the device count).
 """
 
 from __future__ import annotations
@@ -24,9 +22,11 @@ import argparse
 import logging
 import sys
 
+import numpy as np
 import torch
 
-from objective_slam_tpu_torch._common import as_tensor, default_device
+from objective_slam_tpu_torch._common import as_tensor, default_device, \
+    to_numpy
 from objective_slam_tpu_torch.config import PPFConfig
 from objective_slam_tpu_torch.pipeline import ppf_registration
 from objective_slam_tpu_torch.utils import ply, pointcloud as pc, validation
@@ -105,22 +105,6 @@ _LEVELS = {"trace": logging.DEBUG, "debug": logging.DEBUG,
            "info": logging.INFO, "warning": logging.WARNING,
            "error": logging.ERROR, "fatal": logging.CRITICAL}
 
-# Flags whose code paths are not ported yet: (test, message).
-_DEFERRED = (
-    (lambda a: a.visualize, "--visualize true (html_viewer and the PLY/PNG "
-     "export) is not ported yet (ROADMAP queue 1 item 18)"),
-    (lambda a: a.estimate_normals_k > 0, "--estimate_normals_k is not "
-     "ported yet (ROADMAP queue 1 item 9)"),
-    (lambda a: a.smooth_normals > 0, "--smooth_normals is not ported yet "
-     "(ROADMAP queue 1 item 9)"),
-    (lambda a: a.engine == "correlation", "--engine correlation is not "
-     "ported yet (ROADMAP queue 1 item 13)"),
-    (lambda a: a.use_fnv_keys, "--use_fnv_keys is not ported yet (ROADMAP "
-     "queue 1 item 12)"),
-    (lambda a: a.rescore_poses, "--rescore_poses is not ported yet "
-     "(ROADMAP queue 1 item 7)"),
-)
-
 
 def init_logging(args) -> None:
     """File sink with timestamps + severity filter (init_logging,
@@ -133,14 +117,19 @@ def init_logging(args) -> None:
                         handlers=handlers, force=True)
 
 
-def _load_cloud(path):
+def _load_cloud(path, args, device):
     """(points, normals) of a PLY; read normals win, else a mesh's vertex
-    normals (cli.py:173-187)."""
+    normals, else k-NN PCA normals under --estimate_normals_k
+    (cli.py:173-187)."""
     cloud = ply.read_ply(path)
     nrm = cloud.normals
     if nrm is None:
         if cloud.faces is not None:
             nrm = pc.mesh_vertex_normals(cloud.points, cloud.faces)
+        elif args.estimate_normals_k > 0:
+            nrm = to_numpy(pc.estimate_normals_knn(
+                cloud.points, k=args.estimate_normals_k, orient="outward",
+                device=device))
         else:
             raise SystemExit(
                 f"{path}: no normals; pass --estimate_normals_k or provide "
@@ -169,13 +158,21 @@ def main(argv=None, device=None) -> int:
 
 
 def _run(args, device) -> int:
-    for deferred, msg in _DEFERRED:
-        if deferred(args):
-            raise NotImplementedError(msg)
     scene_clouds = []
     for f in args.scene_files:
         log.info("Loading scene point cloud: %s", f)
-        scene_clouds.append(_load_cloud(f))
+        sp, sn = _load_cloud(f, args, device)
+        if args.smooth_normals > 0:
+            # Smooth the full-resolution scan's normal field before any
+            # downsampling, so that the voxelized matcher input and the ICP
+            # cloud (this scan) share the denoised orientation.
+            sn = to_numpy(pc.smooth_normals_grid(
+                sp, sn, args.scene_leaf_size, iterations=args.smooth_normals,
+                order=args.smooth_normals_order, device=device))
+            log.info("Smoothed scene normals: %d passes, order %d, "
+                     "radius %g", args.smooth_normals,
+                     args.smooth_normals_order, args.scene_leaf_size)
+        scene_clouds.append((sp, sn))
 
     if len(args.tau_d) != len(args.model_files):
         log.error("Each model must have an associated tau_d.")
@@ -186,7 +183,7 @@ def _run(args, device) -> int:
     model_d_dists = []
     for i, f in enumerate(args.model_files):
         log.info("Loading model point cloud: %s", f)
-        mp, mn = _load_cloud(f)
+        mp, mn = _load_cloud(f, args, device)
         diam = pc.bbox_diameter(mp)   # bbox-edge approx, alignment.cpp:246-253
         model_d_dists.append(tau_d[i] * diam)
         log.debug("model_diam, d_dist: %f, %f", diam, model_d_dists[-1])
@@ -195,6 +192,9 @@ def _run(args, device) -> int:
     # Downsample (alignment.cpp:259-288).
     log.info("Downsampling...")
     ds_scenes = []
+    # Pad-free twins for the export: --scene_capacity pads ds_scenes with
+    # far-sentinel rows that would blow the viewer's bounding box out.
+    viz_scenes = []
     # The raw scans on the device: the device voxel grid's input, and what
     # ICP (if enabled) refines against — the voxelized cloud's spacing
     # would floor the achievable accuracy.
@@ -214,6 +214,9 @@ def _run(args, device) -> int:
             log.info("Scene size after filtering: %d (padded to %d)",
                      int(vox.num_voxels), args.scene_capacity)
             ds_scenes.append((vox.points, vox.normals))
+            nv = int(vox.num_voxels)
+            viz_scenes.append((to_numpy(vox.points[:nv]),
+                               to_numpy(vox.normals[:nv])))
         else:
             sp2, sn2 = pc.voxel_downsample_np(
                 sp, sn, args.scene_leaf_size,
@@ -221,6 +224,7 @@ def _run(args, device) -> int:
             log.info("Scene size after filtering: %d", len(sp2))
             ds_scenes.append((as_tensor(sp2, device),
                               as_tensor(sn2, device)))
+            viz_scenes.append((sp2, sn2))
     ds_models = []
     for (mp, mn), dd in zip(model_clouds, model_d_dists):
         log.info("Model size before filtering: %d", len(mp))
@@ -273,7 +277,89 @@ def _run(args, device) -> int:
                          v.rot_match)
                 # The machine-readable match bit (alignment.cpp:332).
                 print(int(v.match))
+
+    if args.visualize:
+        _export_visualization(args, viz_scenes, ds_models, out.poses)
     return 0
+
+
+def _export_visualization(args, scenes, models, poses) -> None:
+    """Write the scenes and every posed model as one colored PLY, an HTML
+    viewer (--visualize_html) and, where matplotlib is installed, a PNG
+    (cli.py:331-418; the PCLVisualizer loop, alignment.cpp:337-396).
+    --show_normals writes nx/ny/nz into the PLY and draws a sparse quiver
+    in the PNG."""
+    colors = [(255, 0, 0), (0, 255, 0), (0, 0, 255),
+              (0, 255, 255), (255, 0, 255), (255, 255, 0)]
+    posed = []                      # (scene i, model j, points, normals)
+    for i in range(len(scenes)):
+        for j, (mp, mn) in enumerate(models):
+            T = poses[i][j]
+            posed.append((i, j,
+                          (mp @ T[:3, :3].T + T[:3, 3]).astype(np.float32),
+                          (mn @ T[:3, :3].T).astype(np.float32)))
+    pts = np.concatenate([sp for sp, _ in scenes] + [p[2] for p in posed])
+    nrm = np.concatenate([sn for _, sn in scenes] + [p[3] for p in posed])
+    cols = np.concatenate(
+        [np.full((len(sp), 3), 255, np.uint8) for sp, _ in scenes]
+        + [np.tile(np.asarray(colors[(i * len(models) + j) % len(colors)],
+                              np.uint8), (len(p), 1))
+           for i, j, p, _ in posed])
+    out_ply = args.visualize_out + ".ply"
+    fields = [("p", "<f4", (3,))]
+    if args.show_normals:
+        fields.append(("n", "<f4", (3,)))
+    fields.append(("c", "u1", (3,)))
+    rec = np.empty(len(pts), dtype=fields)
+    rec["p"] = pts
+    rec["c"] = cols
+    if args.show_normals:
+        rec["n"] = nrm
+    with open(out_ply, "wb") as f:
+        f.write(("ply\nformat binary_little_endian 1.0\n"
+                 f"element vertex {len(pts)}\n"
+                 "property float x\nproperty float y\nproperty float z\n"
+                 + ("property float nx\nproperty float ny\n"
+                    "property float nz\n" if args.show_normals else "")
+                 + "property uchar red\nproperty uchar green\n"
+                 "property uchar blue\nend_header\n").encode())
+        f.write(rec.tobytes())
+    log.info("visualization written: %s", out_ply)
+    if args.visualize_html:
+        from objective_slam_tpu_torch.utils import html_viewer
+        clouds = [{"points": sp, "normals": sn, "name": f"scene{i}"}
+                  for i, (sp, sn) in enumerate(scenes)]
+        clouds += [{"points": p, "normals": n,
+                    "color": html_viewer.default_color(ci),
+                    "name": f"model{j}@scene{i}"}
+                   for ci, (i, j, p, n) in enumerate(posed)]
+        html_viewer.write_html_viewer(args.visualize_out + ".html", clouds,
+                                      title="alignment result")
+        log.info("visualization written: %s.html", args.visualize_out)
+    try:
+        import matplotlib
+    except ImportError as e:        # matplotlib is optional
+        log.debug("png export skipped: %s", e)
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig = plt.figure(figsize=(8, 8))
+    ax = fig.add_subplot(projection="3d")
+    step = max(1, len(pts) // 20000)
+    ax.scatter(pts[::step, 0], pts[::step, 1], pts[::step, 2],
+               c=cols[::step] / 255.0, s=1)
+    if args.show_normals:
+        # A sparse subsample at 2% of the scene extent (the PCLVisualizer
+        # overlay draws every 10th normal at level 0.02).
+        qstep = max(1, len(pts) // 2000)
+        extent = float(np.ptp(pts, axis=0).max())
+        ax.quiver(pts[::qstep, 0], pts[::qstep, 1], pts[::qstep, 2],
+                  nrm[::qstep, 0], nrm[::qstep, 1], nrm[::qstep, 2],
+                  length=0.02 * extent, normalize=True, color="gray",
+                  linewidth=0.3)
+    fig.savefig(args.visualize_out + ".png", dpi=120)
+    plt.close(fig)
+    log.info("visualization written: %s.png", args.visualize_out)
 
 
 if __name__ == "__main__":

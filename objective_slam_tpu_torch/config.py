@@ -5,9 +5,8 @@ fields, defaults and derived properties. It is copied rather than imported
 because importing anything from the JAX package imports ``jax``.
 
 See the JAX package's docstring for the meaning of each field; the port
-serves ``engine`` in {"fast", "reference"} and raises ``NotImplementedError``
-for ``engine="correlation"``, ``use_fnv_keys=True`` and
-``rescore_poses=True`` (ROADMAP queue 1 items 13, 12 and 7).
+serves every ``engine`` ("fast", "reference", "correlation"),
+``use_fnv_keys`` and ``rescore_poses``.
 """
 
 from __future__ import annotations

@@ -9,15 +9,14 @@
                 dense pose clustering         (kernel.cu:647-763)
                 argmax winner, optional ICP   (model.cu:293-295)
 
-Engines: "fast" and "reference" (the readable engine). "fast" takes the
-block engine (tally: kernel K1) when the model fits its budgets, else the
+Engines: "fast", "reference" (the readable engine) and "correlation"
+(``voting_corr``, matmul-only, α within one bin). "fast" takes the block
+engine (tally: kernel K1) when the model fits its budgets, else the
 fallback engine ``voting_fast.cast_votes_fast`` (tally: kernel K2).
-Everything runs eagerly on the device of the model description; numpy
-inputs are moved there.
-
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: engine="correlation" (queue 1 item 13), use_fnv_keys=True
-(item 12) and rescore_poses=True (item 7).
+``use_fnv_keys`` keys the table, and every engine built from it, by
+FNV-bucket rank (``hashing``); ``rescore_poses`` re-ranks near-tied Hough
+peaks by their inlier score (``verify_pose``). Everything runs eagerly on
+the device of the model description; numpy inputs are moved there.
 """
 
 from __future__ import annotations
@@ -29,28 +28,20 @@ import numpy as np
 import torch
 
 from objective_slam_tpu_torch._common import as_tensor, default_device, \
-    to_numpy
+    f32, to_numpy
 from objective_slam_tpu_torch.config import PPFConfig
-from objective_slam_tpu_torch.ops import (clustering, icp, ppf as ppf_ops,
-                                          transforms as tr, voting,
-                                          voting_block, voting_fast)
+from objective_slam_tpu_torch.ops import (clustering, hashing, icp,
+                                          ppf as ppf_ops, transforms as tr,
+                                          verify_pose, voting, voting_block,
+                                          voting_corr, voting_fast)
 
-_ENGINES = ("fast", "reference")
+_ENGINES = ("fast", "reference", "correlation")
 
 
 def _check_config(config: PPFConfig) -> None:
-    if config.engine == "correlation":
-        raise NotImplementedError(
-            "engine='correlation' is not ported yet (ROADMAP queue 1 item 13)")
     if config.engine not in _ENGINES:
         raise ValueError(f"unknown engine {config.engine!r}; the port "
                          f"serves {_ENGINES}")
-    if config.use_fnv_keys:
-        raise NotImplementedError(
-            "use_fnv_keys=True is not ported yet (ROADMAP queue 1 item 12)")
-    if config.rescore_poses:
-        raise NotImplementedError(
-            "rescore_poses=True is not ported yet (ROADMAP queue 1 item 7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +60,9 @@ class ModelDescription:
     num_keys: int
     max_dist_bin: int
     diameter: float
+    corr_tables: voting_corr.CorrTables | None = None
+    # FNV keying mode: table and engines are keyed by FNV-bucket rank.
+    fnv_remap: hashing.FnvRemap | None = None
 
     @property
     def device(self) -> torch.device:
@@ -102,6 +96,13 @@ def build_model_description(points, normals, config: PPFConfig = PPFConfig(),
     n = pts.shape[0]
     keys, alpha = ppf_ops.pairwise_ppf_keys(pts, nrm, d_dist, config.d_angle,
                                             max_dist_bin)
+    fnv_remap = None
+    if config.use_fnv_keys:
+        # Remap packed keys to FNV-bucket ranks (hash collisions conflate
+        # buckets; hash 0 is left out) and key the table by rank.
+        fnv_remap = hashing.build_fnv_remap(keys, d_dist, config.d_angle)
+        num_keys = int(fnv_remap.occ_hashes.shape[0])
+        keys = hashing.fnv_remap_keys(keys, fnv_remap, d_dist, config.d_angle)
     table = voting.build_key_table(keys, alpha, num_keys)
     beta, gamma = tr.canonical_angles(pts, nrm)
     if vote_weights is None:
@@ -111,7 +112,10 @@ def build_model_description(points, normals, config: PPFConfig = PPFConfig(),
         vote_weights=as_tensor(vote_weights, device),
         table=table, d_dist=float(np.float32(d_dist)),
         fast_tables=(voting_fast.build_fast_tables(table)
-                     if config.engine == "fast" else None),
+                     if config.engine in ("fast", "correlation") else None),
+        corr_tables=(voting_corr.build_corr_tables(table, n, config.n_angle)
+                     if config.engine == "correlation" else None),
+        fnv_remap=fnv_remap,
         n_points=n, num_keys=num_keys, max_dist_bin=max_dist_bin,
         diameter=diameter)
 
@@ -138,21 +142,49 @@ def _scene_inputs(model, scene_points, scene_normals, ref_point_df):
     return pts, nrm, ref_idx
 
 
+def _scene_keys(model: ModelDescription, scene_points, scene_normals,
+                ref_idx, d_angle):
+    """Scene pair keys and α_s in the model's key space: packed keys, or
+    FNV-bucket ranks for a description built with use_fnv_keys
+    (drost.py:167-177)."""
+    keys, alpha_s = ppf_ops.pairwise_ppf_keys(
+        scene_points, scene_normals, model.d_dist, d_angle,
+        model.max_dist_bin, ref_indices=ref_idx)
+    if model.fnv_remap is not None:
+        # Every valid key lies in the packed key space: hash that once and
+        # gather, rather than hashing each scene pair.
+        ranks = hashing.fnv_rank_table(
+            model.fnv_remap, ppf_ops.num_keys(model.max_dist_bin),
+            model.d_dist, d_angle)
+        valid = keys != ppf_ops.INVALID_KEY
+        keys = torch.where(valid,
+                           ranks[torch.where(valid, keys, 0).to(torch.int64)],
+                           ppf_ops.INVALID_KEY)
+    return keys, alpha_s
+
+
 def _match_core(model: ModelDescription, scene_points, scene_normals, *,
                 ref_point_df: int, vote_cap: int, config: PPFConfig,
                 icp_points=None, icp_normals=None,
-                seg_cap: int | None = None) -> MatchResult:
+                seg_cap: int | None = None,
+                runs_cap: int | None = None) -> MatchResult:
     """The matching pipeline at fixed capacities (drost.py:180-310)."""
     _check_config(config)
     scene_points, scene_normals, ref_idx = _scene_inputs(
         model, scene_points, scene_normals, ref_point_df)
-    keys, alpha_s = ppf_ops.pairwise_ppf_keys(
-        scene_points, scene_normals, model.d_dist, config.d_angle,
-        model.max_dist_bin, ref_indices=ref_idx)
+    keys, alpha_s = _scene_keys(model, scene_points, scene_normals, ref_idx,
+                                config.d_angle)
     s_ref_pts = scene_points[ref_idx]
     s_beta, s_gamma = tr.canonical_angles(s_ref_pts, scene_normals[ref_idx])
 
-    if config.engine == "fast":
+    # Missing engine tables raise instead of giving an empty accumulator.
+    if config.engine == "correlation":
+        if model.corr_tables is None:
+            raise ValueError("engine='correlation' but model.corr_tables is "
+                             "None — rebuild tables for this engine")
+        votes = voting_corr.cast_votes_corr(keys, alpha_s, model.corr_tables,
+                                            model.n_points, runs_cap=runs_cap)
+    elif config.engine == "fast":
         if model.fast_tables is None:
             raise ValueError("engine='fast' but model.fast_tables is None — "
                              "rebuild tables for this engine")
@@ -185,9 +217,25 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
         include_center_cell=config.cluster_center_cell,
         use_l1_norm=config.use_l1_norm,
         use_averaged_clusters=config.use_averaged_clusters)
-    win = torch.argmax(cl.vote_counts)
-    pose = poses[win].clone()
-    pose[:3, 3] = cl.translations[win]
+    if config.rescore_poses:
+        # Geometric verification of the near-tied Hough peaks only
+        # (drost.py:260-281): the vote count carries the occlusion-robust
+        # support, the inlier score breaks ties between aliased peaks.
+        near = cl.vote_counts >= (f32(config.rescore_min_vote_frac)
+                                  * torch.max(cl.vote_counts))
+        cand = poses.clone()
+        cand[:, :3, 3] = cl.translations
+        scores = verify_pose.inlier_scores(
+            cand, top.keep & near, model.points, scene_points, model.d_dist,
+            model_normals=model.normals, scene_normals=scene_normals)
+        combined = torch.where(top.keep & near,
+                               cl.vote_counts * (1.0 + scores), -1.0)
+        win = torch.argmax(combined)
+        pose = cand[win]
+    else:
+        win = torch.argmax(cl.vote_counts)
+        pose = poses[win].clone()
+        pose[:3, 3] = cl.translations[win]
 
     if config.refine_icp:
         # Voxel-pad sentinel points sit ~1e7 away and never fall inside the
@@ -221,9 +269,7 @@ def _count_votes(model, scene_points, scene_normals, ref_point_df,
     int32 sums as in the JAX package."""
     pts, nrm, ref_idx = _scene_inputs(model, scene_points, scene_normals,
                                       ref_point_df)
-    keys, _ = ppf_ops.pairwise_ppf_keys(pts, nrm, model.d_dist, d_angle,
-                                        model.max_dist_bin,
-                                        ref_indices=ref_idx)
+    keys, _ = _scene_keys(model, pts, nrm, ref_idx, d_angle)
     valid = keys != ppf_ops.INVALID_KEY
     safe = torch.where(valid, keys, 0).to(torch.int64)
     cnt = torch.where(valid, model.table.counts[safe], 0)
@@ -248,8 +294,9 @@ def _next_cap(x: int) -> int:
 
 
 class MatchCaps(NamedTuple):
-    """Capacity state of one sized match (drost.py:388-397); runs_cap is
-    always None here (it belongs to the correlation engine)."""
+    """Capacity state of one sized match (drost.py:388-397). vote_cap is 0
+    for the correlation engine, which needs no vote buffer; runs_cap None
+    means that engine's own default."""
     vote_cap: int
     seg_cap: int | None
     runs_cap: int | None
@@ -262,12 +309,12 @@ def match(model: ModelDescription, scene_points, scene_normals,
           max_poses_ceiling: int = 8192) -> MatchResult:
     """Sized match with the topk_saturated retry loop: max_poses doubles
     up to max_poses_ceiling (and the accumulator size); still saturated
-    there, the flag comes back set (drost.py:400-419). runs_cap belongs to
-    the correlation engine, which is not ported (it raises); the other
-    engines ignore it, as in the JAX package."""
-    del runs_cap
+    there, the flag comes back set (drost.py:400-419). runs_cap is the
+    correlation engine's starting capacity (see _match_sized_caps); the
+    other engines ignore it."""
     return _match_loop(model, scene_points, scene_normals, config, vote_cap,
-                       icp_points, icp_normals, max_poses_ceiling)[0]
+                       icp_points, icp_normals, runs_cap,
+                       max_poses_ceiling)[0]
 
 
 def _n_cells(model, scene_points, ref_point_df) -> int:
@@ -292,7 +339,7 @@ def match_with_state(model: ModelDescription, scene_points, scene_normals,
                           ref_point_df=cfg.ref_point_df,
                           vote_cap=state.vote_cap, config=cfg,
                           icp_points=icp_points, icp_normals=icp_normals,
-                          seg_cap=state.seg_cap)
+                          seg_cap=state.seg_cap, runs_cap=state.runs_cap)
         ovf, sat = torch.stack([res.overflowed, res.topk_saturated]).tolist()
         if not ovf:
             if not sat:
@@ -301,17 +348,18 @@ def match_with_state(model: ModelDescription, scene_points, scene_normals,
             if state.max_poses >= min(max_poses_ceiling, cells):
                 return res, state
     return _match_loop(model, scene_points, scene_normals, config, None,
-                       icp_points, icp_normals, max_poses_ceiling)
+                       icp_points, icp_normals, None, max_poses_ceiling)
 
 
 def _match_loop(model, scene_points, scene_normals, config, vote_cap,
-                icp_points, icp_normals, max_poses_ceiling):
+                icp_points, icp_normals, runs_cap, max_poses_ceiling):
     """The topk_saturated -> double-max_poses loop (drost.py:481-498);
     returns (result, caps that produced it)."""
     cfg = config
     while True:
         res, caps = _match_sized_caps(model, scene_points, scene_normals,
-                                      cfg, vote_cap, icp_points, icp_normals)
+                                      cfg, vote_cap, icp_points, icp_normals,
+                                      runs_cap)
         if not bool(res.topk_saturated):
             return res, caps
         cells = _n_cells(model, scene_points, cfg.ref_point_df)
@@ -324,12 +372,38 @@ def _match_loop(model, scene_points, scene_normals, config, vote_cap,
 def _match_sized_caps(model: ModelDescription, scene_points, scene_normals,
                       config: PPFConfig = PPFConfig(),
                       vote_cap: int | None = None, icp_points=None,
-                      icp_normals=None) -> tuple[MatchResult, MatchCaps]:
+                      icp_normals=None, runs_cap: int | None = None
+                      ) -> tuple[MatchResult, MatchCaps]:
     """Match at capacities sized by the exact count pass when vote_cap is
     None (drost.py:511-590): the block engine needs the row-padded votes
     plus one chunk per reference row, and seg_cap the nonzero segments; the
     fallback engine needs the votes plus TALLY_CHUNK slots per reference
-    row."""
+    row.
+
+    The correlation engine needs no vote buffer. It starts at runs_cap
+    (None: its own default) and retries at the next capacity bucket while
+    its histogram holds more occupied cells than the cap; the cap clamps
+    to the scene-pair count, so the loop ends and no tally is truncated."""
+    if config.engine == "correlation":
+        if model.corr_tables is None:
+            raise ValueError(
+                "engine='correlation' requires corr_tables; build the model "
+                "description with a correlation config")
+        n_s = int(scene_points.shape[0])
+        S = ((n_s + config.ref_point_df - 1) // config.ref_point_df) * n_s
+        rc = runs_cap
+        while True:
+            res = _match_core(model, scene_points, scene_normals,
+                              ref_point_df=config.ref_point_df, vote_cap=0,
+                              config=config, icp_points=icp_points,
+                              icp_normals=icp_normals, runs_cap=rc)
+            if rc is not None and rc >= S:
+                break
+            if not bool(res.overflowed):
+                break
+            rc = _next_cap(2 * (rc if rc is not None
+                                else max(S // 6, 65536)))
+        return res, MatchCaps(0, None, rc, config.max_poses)
     if config.engine == "fast" and model.fast_tables is None:
         raise ValueError(
             "engine='fast' requires fast_tables; build the model "
@@ -358,9 +432,10 @@ def _match_sized_caps(model: ModelDescription, scene_points, scene_normals,
 
 def _match_sized(model, scene_points, scene_normals,
                  config: PPFConfig = PPFConfig(), vote_cap=None,
-                 icp_points=None, icp_normals=None) -> MatchResult:
+                 icp_points=None, icp_normals=None,
+                 runs_cap: int | None = None) -> MatchResult:
     return _match_sized_caps(model, scene_points, scene_normals, config,
-                             vote_cap, icp_points, icp_normals)[0]
+                             vote_cap, icp_points, icp_normals, runs_cap)[0]
 
 
 def match_accumulator_only(model: ModelDescription, scene_points,
@@ -375,9 +450,7 @@ def match_accumulator_only(model: ModelDescription, scene_points,
             config.d_angle)[0])
     pts, nrm, ref_idx = _scene_inputs(model, scene_points, scene_normals,
                                       config.ref_point_df)
-    keys, alpha_s = ppf_ops.pairwise_ppf_keys(
-        pts, nrm, model.d_dist, config.d_angle, model.max_dist_bin,
-        ref_indices=ref_idx)
+    keys, alpha_s = _scene_keys(model, pts, nrm, ref_idx, config.d_angle)
     return voting.cast_votes(keys, alpha_s, model.table, model.n_points,
                              config.d_angle, int(vote_cap))
 

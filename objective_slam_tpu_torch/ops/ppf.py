@@ -25,6 +25,45 @@ def quant_downf(x, step):
     return x - torch.fmod(x, f32(step))
 
 
+def compute_ppf(p1, n1, p2, n2):
+    """F = (‖d‖, ∠(n1,d), ∠(n2,d), ∠(n1,n2)) with d = p2 − p1
+    (kernel.cu:109-122); dots clamped to [−1, 1] (ppf.py:49-76). Inputs
+    broadcast; returns (..., 4) float32."""
+    d = p2 - p1
+    dist = torch.sqrt(torch.sum(d * d, dim=-1))
+    pos = dist > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, dist, 1.0), 0.0)
+    n1n = torch.sqrt(torch.sum(n1 * n1, dim=-1))
+    n2n = torch.sqrt(torch.sum(n2 * n2, dim=-1))
+
+    def acos(c):
+        return torch.arccos(torch.clamp(c, -1.0, 1.0))
+
+    f2 = acos(torch.sum(n1 * d, dim=-1) * inv / torch.where(n1n > 0, n1n, 1.0))
+    f3 = acos(torch.sum(n2 * d, dim=-1) * inv / torch.where(n2n > 0, n2n, 1.0))
+    nn = n1n * n2n
+    f4 = acos(torch.sum(n1 * n2, dim=-1) / torch.where(nn > 0, nn, 1.0))
+    return torch.stack(torch.broadcast_tensors(dist, f2, f3, f4), dim=-1)
+
+
+def disc_feature(f, d_dist, d_angle):
+    """Quantize a PPF: distance by d_dist, angles by d_angle
+    (kernel.cu:94-100). Returns the quantized float4."""
+    return torch.stack([quant_downf(f[..., 0], d_dist),
+                        quant_downf(f[..., 1], d_angle),
+                        quant_downf(f[..., 2], d_angle),
+                        quant_downf(f[..., 3], d_angle)], dim=-1)
+
+
+def feature_bins(f, d_dist, d_angle):
+    """Integer bin indices of a PPF, round(quant_downf(x, s) / s), taken
+    through the quantized float so that bin edges match the reference."""
+    q = disc_feature(f, d_dist, d_angle)
+    db = torch.round(q[..., 0] / f32(d_dist)).to(torch.int32)
+    ab = torch.round(q[..., 1:] / f32(d_angle)).to(torch.int32)
+    return db, ab
+
+
 def pack_key(dist_bin, angle_bins, max_dist_bin):
     """Pack (dist_bin, a1, a2, a3) into one int32 key; out-of-range bins map
     to INVALID_KEY (ppf.py:101-115)."""

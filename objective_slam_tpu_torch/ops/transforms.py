@@ -18,6 +18,47 @@ def _mv(A, v):
     return torch.einsum("...ij,...j->...i", A, v)
 
 
+def _embed_rot(theta, i: int, j: int):
+    """Homogeneous rotation by theta in the plane (i, j); the other rows
+    and columns are the identity."""
+    theta = torch.as_tensor(theta, dtype=torch.float32)
+    c, s = torch.cos(theta), torch.sin(theta)
+    T = torch.zeros(theta.shape + (4, 4), dtype=torch.float32,
+                    device=theta.device)
+    for k in range(4):
+        if k not in (i, j):
+            T[..., k, k] = 1.0
+    T[..., i, i] = c
+    T[..., j, j] = c
+    T[..., j, i] = s
+    T[..., i, j] = -s
+    return T
+
+
+def rotx(theta):
+    """Rotation about x (kernel.cu:181-189)."""
+    return _embed_rot(theta, 1, 2)
+
+
+def roty(theta):
+    """Rotation about y (kernel.cu:191-199): T[0][2] = sin, T[2][0] = −sin."""
+    return _embed_rot(theta, 2, 0)
+
+
+def rotz(theta):
+    """Rotation about z (kernel.cu:201-209)."""
+    return _embed_rot(theta, 0, 1)
+
+
+def trans_mat(v):
+    """Homogeneous translation by v (..., 3) (kernel.cu:170-179)."""
+    v = torch.as_tensor(v, dtype=torch.float32)
+    T = torch.eye(4, dtype=torch.float32, device=v.device) \
+        .expand(v.shape[:-1] + (4, 4)).clone()
+    T[..., :3, 3] = v
+    return T
+
+
 def invht(T):
     """Closed-form inverse of a rigid homogeneous transform
     (kernel.cu:254-299): inv([R t; 0 1]) = [Rᵀ -Rᵀt; 0 1]."""
@@ -33,6 +74,11 @@ def invht(T):
 def transform_points(T, p):
     """(..., 4, 4) x (..., 3) -> (..., 3) (kernel.cu:234-252)."""
     return _mv(T[..., :3, :3], p) + T[..., :3, 3]
+
+
+def rotate_vectors(T, n):
+    """Apply only the rotation part of T to vectors (for normals)."""
+    return _mv(T[..., :3, :3], n)
 
 
 def hrotmat2quat(T):
@@ -98,6 +144,54 @@ def canonical_rotation(beta, gamma):
     row1 = torch.stack([sg * cb, cg, sg * sb], dim=-1)
     row2 = torch.stack([-sb, zero, cb], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def canonical_transform(p, n):
+    """Full 4x4 T_g = Rotz(γ)·Roty(β)·Trans(−p) (kernel.cu:310-318)."""
+    beta, gamma = canonical_angles(p, n)
+    R = canonical_rotation(beta, gamma)
+    T = torch.zeros(beta.shape + (4, 4), dtype=torch.float32,
+                    device=beta.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = -_mv(R, p.to(torch.float32))
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def alpha_about_x(u, v):
+    """Signed angle from u to v about +x after projecting both onto the yz
+    plane: atan2(x̂·(û×v̂), û·v̂) (trans_model_scene.m:34-39,
+    kernel.cu:330-340)."""
+    cross_x = u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1]
+    dot_yz = u[..., 1] * v[..., 1] + u[..., 2] * v[..., 2]
+    return torch.atan2(cross_x, dot_yz)
+
+
+def alpha_angle(p_ref, n_ref, p_other):
+    """α of a point pair: the angle about x of the second point once the
+    pair is moved to the canonical frame of (p_ref, n_ref). The per-vote
+    α of the reference (kernel.cu:330-340) is wrap(α_s − α_m) of two such
+    angles."""
+    beta, gamma = canonical_angles(p_ref, n_ref)
+    u = _mv(canonical_rotation(beta, gamma), p_other - p_ref)
+    return torch.atan2(u[..., 2], u[..., 1])
+
+
+def wrap_angle(a):
+    """Wrap to [−π, π)."""
+    two_pi = f32(2.0 * torch.pi)
+    return a - two_pi * torch.floor((a + torch.pi) / two_pi)
+
+
+def trans_model_scene(m_r, n_r_m, m_i, s_r, n_r_s, s_i):
+    """Transliteration of matlab/trans_model_scene.m:1-41 /
+    kernel.cu:302-349: (T_m_g, T_s_g, α). For tests of the α
+    decomposition; the matcher never calls it."""
+    T_m_g = canonical_transform(m_r, n_r_m)
+    T_s_g = canonical_transform(s_r, n_r_s)
+    alpha = alpha_about_x(transform_points(T_m_g, m_i),
+                          transform_points(T_s_g, s_i))
+    return T_m_g, T_s_g, alpha
 
 
 def pose_from_vote(alpha_idx, m_point, m_beta, m_gamma, s_point, s_beta,

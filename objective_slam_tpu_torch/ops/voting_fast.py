@@ -163,6 +163,14 @@ class PairLookup(NamedTuple):
     overflow: torch.Tensor
 
 
+def alpha_to_fix(alpha):
+    """α_s as 22-bit fixed point (float32 arithmetic, as the JAX package;
+    voting_fast.py:315-318), int32."""
+    fix = torch.round((alpha + f32(math.pi)) * f32(_ALPHA_SCALE)) \
+        .to(torch.int32)
+    return torch.clamp(fix, 0, _ALPHA_MAX)
+
+
 def _pair_lookup(scene_keys, scene_alpha, tables: FastModelTables,
                  vote_cap: int, chunk: int = TALLY_CHUNK) -> PairLookup:
     """One table lookup per scene pair, the row-aligned padding and α_s in
@@ -193,11 +201,8 @@ def _pair_lookup(scene_keys, scene_alpha, tables: FastModelTables,
     total_p = row_start_p[-1] + row_tot_p[-1]
     total = row_cum[-1] + row_tot[-1]
 
-    # α_s as 22-bit fixed point (float32 arithmetic, as the JAX package).
-    alpha_fix = torch.round((flat_alpha + f32(math.pi))
-                            * f32(_ALPHA_SCALE)).to(torch.int32)
-    alpha_fix = torch.clamp(alpha_fix, 0, _ALPHA_MAX)
-    return PairLookup(cnt=cnt, off=off, alpha_fix=alpha_fix, row_tot=row_tot,
+    return PairLookup(cnt=cnt, off=off, alpha_fix=alpha_to_fix(flat_alpha),
+                      row_tot=row_tot,
                       row_start_p=row_start_p, total_p=total_p, total=total,
                       overflow=total_p > vote_cap)
 

@@ -2,14 +2,15 @@
 
 A copy of ``objective_slam_tpu.utils.ply`` (ply.py:14-193): ``PlyCloud``,
 ``read_ply`` (ascii and binary_little_endian; x/y/z, nx/ny/nz, other
-vertex properties kept in ``extra``, triangle faces) and ``write_ply``.
-The port cannot import the JAX package's module (importing any of it
-imports jax). ``read_stl`` is not copied yet (ROADMAP queue 1 item 18).
+vertex properties kept in ``extra``, triangle faces), ``write_ply`` and
+``read_stl`` (:196-233). The port cannot import the JAX package's module
+(importing any of it imports jax).
 """
 
 from __future__ import annotations
 
 import io
+import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -187,3 +188,36 @@ def write_ply(path, points, normals=None, binary: bool = True,
                 for face in faces:
                     f.write((f"3 {face[0]} {face[1]} {face[2]}\n")
                             .encode("ascii"))
+
+
+def read_stl(path, weld_decimals: int = 5):
+    """Binary STL triangle-soup reader with vertex welding.
+
+    STL repeats every vertex once per incident triangle, without
+    connectivity; the soup is welded into an indexed mesh by exact match
+    on coordinates rounded to `weld_decimals`, the form that
+    ``pointcloud.mesh_vertex_normals`` and ``synthetic.partial_view``
+    take. Triangles that the welding collapsed are dropped.
+
+    Returns (vertices (n, 3) float32, faces (m, 3) int32)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if len(raw) < 84:
+        raise ValueError(f"{path}: not a binary STL (too short)")
+    n_tri = struct.unpack("<I", raw[80:84])[0]
+    if len(raw) != 84 + 50 * n_tri:
+        raise ValueError(f"{path}: size mismatch — ascii STL or corrupt "
+                         f"({len(raw)} bytes, {n_tri} triangles declared)")
+    rec = np.frombuffer(raw, dtype=[("nrm", "<f4", (3,)),
+                                    ("v", "<f4", (3, 3)),
+                                    ("attr", "<u2")], count=n_tri, offset=84)
+    soup = np.ascontiguousarray(rec["v"].reshape(-1, 3))        # (3m, 3)
+    key = np.round(soup.astype(np.float64), weld_decimals)
+    _, first, inv = np.unique(key.view([("x", "f8"), ("y", "f8"),
+                                        ("z", "f8")]).reshape(-1),
+                              return_index=True, return_inverse=True)
+    verts = soup[first]
+    faces = inv.reshape(-1, 3).astype(np.int32)
+    ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+          & (faces[:, 0] != faces[:, 2]))
+    return verts.astype(np.float32), faces[ok]

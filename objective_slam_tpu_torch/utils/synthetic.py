@@ -5,13 +5,15 @@ Copies of ``objective_slam_tpu.utils.synthetic`` (synthetic.py:17-228,
 same arrays — plus ``bin_picking_scene``, a copy of ``bench.build_scene``
 (bench.py:89-138), and the UWA-analog models and scenes of
 ``tools/run_uwa_analog.py`` (``build_models``, ``build_scene``, :44-69,
-135-201, with ``MODEL_DIAMS`` of ``tools/analyze_uwa.py:28-33``). The port
-cannot import any of them: they import jax.
+135-201, with ``MODEL_DIAMS`` of ``tools/analyze_uwa.py:28-33``) and its
+real-mesh models (``build_models_real``, :79-119). The port cannot import
+any of them: they import jax.
 """
 
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import numpy as np
 
@@ -289,17 +291,54 @@ def uwa_analog_models():
     return out
 
 
-def uwa_analog_scene(rng, models, normals):
+# Laser-scanned skeleton meshes (binary STL) that stand for the UWA models
+# in the real-mesh run: name -> (file, the UWA diameter it is scaled to).
+REAL_MESHES = {
+    "skull": ("BONEMergedSkull.stl", 136.59418),
+    "pelvis": ("BONEPelvis.stl", 131.250275),
+    "humerus": ("BONEhumerus_L.stl", 98.828925),
+    "scapula": ("BONEScapula_L.stl", 86.28052),
+}
+REAL_MODEL_DIAMS = {name: diam for name, (_, diam) in REAL_MESHES.items()}
+
+
+def uwa_real_models(mesh_dir, n_samples: int = 6000, seed: int = 123):
+    """The four scanned bone meshes of REAL_MESHES, read from `mesh_dir`,
+    scaled to their UWA diameters and sampled uniformly by area with
+    interpolated normals (run_uwa_analog.py:89-119; the raw vertices of
+    these decimated meshes crowd at high curvature). Raises
+    FileNotFoundError when a mesh is missing. Pass REAL_MODEL_DIAMS to
+    uwa_analog_scene as `diams`.
+
+    Returns ({name: (points, None)}, {name: normals})."""
+    from objective_slam_tpu_torch.utils import ply, pointcloud as pc
+
+    rng = np.random.default_rng(seed)
+    out, normals = {}, {}
+    for name, (fname, diam) in REAL_MESHES.items():
+        path = Path(mesh_dir) / fname
+        if not path.exists():
+            raise FileNotFoundError(f"real mesh not found: {path}")
+        v, f = ply.read_stl(path)
+        v = (v * (diam / pc.bbox_diameter(v))).astype(np.float32)
+        sp, normals[name] = pc.sample_mesh_surface(v, f, n_samples, rng)
+        out[name] = (sp, None)
+    return out, normals
+
+
+def uwa_analog_scene(rng, models, normals, diams=None):
     """One cluttered UWA-analog scene holding a partial view of every model
     at a random pose, N_TOTAL points in all (run_uwa_analog.py:135-201).
+    `diams` adds model diameters to MODEL_DIAMS (the real-mesh models').
     Returns (scene_pts, scene_nrm, {name: (T_true, occlusion %)})."""
-    scale = max(MODEL_DIAMS.values())
+    diams = {**MODEL_DIAMS, **(diams or {})}
+    scale = max(diams.values())
     views = {}
     for name, (verts, _faces) in models.items():
         nrm = normals[name]
         d = rng.normal(size=3)
         d /= np.linalg.norm(d)
-        vis = partial_view(verts, nrm, d * 4.0 * MODEL_DIAMS[name])
+        vis = partial_view(verts, nrm, d * 4.0 * diams[name])
         # An extra half-space cut spreads occlusion over ~55-85 %.
         extra = rng.uniform(0.0, 0.55)
         if extra > 0.02:
@@ -336,7 +375,7 @@ def uwa_analog_scene(rng, models, normals):
         while True:
             t = rng.uniform(-1.1, 1.1, size=3).astype(np.float32) * scale
             if all(np.linalg.norm(t - c) >
-                   0.55 * (MODEL_DIAMS[name] + MODEL_DIAMS[o]) * 1.05
+                   0.55 * (diams[name] + diams[o]) * 1.05
                    for c, o in zip(centers, placed)):
                 break
         centers.append(t)

@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's on the same PLY files: the same
 0/1 match bits on stdout, the log lines tools/analyze_uwa.py parses, and
-the flags whose code paths are not ported yet. The port runs on the CPU
-(main(..., device="cpu")); mirrors of the tests/test_cli.py cases."""
+the visualization export. The port runs on the CPU (main(...,
+device="cpu")); mirrors of the tests/test_cli.py cases."""
 
+import re
 import sys
 from pathlib import Path
 
@@ -143,18 +144,141 @@ def test_cli_fallback_engine_model(tmp_path, capsys):
     assert trans_err < dd and rot_err < np.radians(12)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--visualize", "true"], "18"),
-    (["--estimate_normals_k", "12"], "9"),
-    (["--smooth_normals", "1"], "9"),
-    (["--engine", "correlation"], "13"),
-    (["--use_fnv_keys", "true"], "12"),
-    (["--rescore_poses", "true"], "7"),
-])
-def test_cli_deferred_flags_raise(scene_fixture, extra, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tcli.main([str(a) for a in _base(*scene_fixture, *extra)],
-                  device="cpu")
+def _logged(argv, tmp_path, capsys):
+    """Both CLIs on the same argv, each with its own --logfile and
+    --visualize_out. Returns (bits, {package: parsed log}) where a parsed
+    log holds the vote totals, the (trans, rot) distances and the Match
+    lines, in order."""
+    logs, bits = {}, {}
+    for name, run in (("port", lambda a: tcli.main(a, device="cpu")),
+                      ("jax", jcli.main)):
+        log = tmp_path / f"{name}.log"
+        rc = run([str(a) for a in argv] + ["--logfile", str(log),
+                                           "--visualize_out",
+                                           str(tmp_path / f"vis_{name}")])
+        assert rc == 0
+        bits[name] = capsys.readouterr().out.split()
+        text = log.read_text()
+        logs[name] = dict(
+            votes=[int(v) for v in re.findall(r"votes=(\d+)", text)],
+            dist=[(float(a), float(b)) for a, b in re.findall(
+                r"Distance \(trans, rot\): ([\d.]+), ([\d.]+)", text)],
+            match=re.findall(r"Match \(trans, rot\): (\d), (\d)", text),
+            sizes=re.findall(r"size after filtering: (\d+)", text),
+            smoothed=re.findall(r"Smoothed scene normals: .*", text))
+    assert bits["port"] == bits["jax"]
+    return bits["port"], logs
+
+
+def _same_logs(logs, dist_atol=2e-3):
+    a, b = logs["port"], logs["jax"]
+    assert a["match"] == b["match"] and a["sizes"] == b["sizes"]
+    assert a["smoothed"] == b["smoothed"]
+    assert len(a["dist"]) == len(b["dist"]) > 0
+    np.testing.assert_allclose(a["dist"], b["dist"], atol=dist_atol)
+    return a
+
+
+@pytest.mark.parametrize("extra", [
+    ["--visualize", "true"],
+    ["--smooth_normals", "1"],
+    ["--smooth_normals", "2", "--smooth_normals_order", "0"],
+    ["--engine", "correlation"],
+    ["--engine", "correlation", "--runs_cap", "128"],
+    ["--use_fnv_keys", "true"],
+    ["--rescore_poses", "true"],
+    ["--engine", "correlation", "--rescore_poses", "true",
+     "--icp_iterations", "10", "--icp_point_to_plane", "true",
+     "--normal_aware_downsample", "true"],
+], ids=["visualize", "smooth_order1", "smooth_order0", "correlation",
+        "runs_cap", "use_fnv_keys", "rescore_poses", "real_mesh_argv"])
+def test_cli_formerly_deferred_flags(scene_fixture, tmp_path, capsys, extra):
+    """The flags that used to raise NotImplementedError: the same bit, vote
+    total and log lines as the JAX CLI."""
+    bits, logs = _logged(_base(*scene_fixture, *extra), tmp_path, capsys)
+    assert bits == ["1"]
+    port = _same_logs(logs)
+    assert port["votes"] == logs["jax"]["votes"] and port["votes"][0] > 0
+
+
+def test_cli_estimate_normals_k(tmp_path, capsys):
+    """Mirror of test_cli_missing_normals_estimation: PLYs without normals
+    or faces, k-NN normals on both sides."""
+    rng = np.random.default_rng(0)
+    mp, mn = synthetic.blob_cloud(rng, 90)
+    sp, _, T_true = synthetic.plant_model(rng, mp, mn)
+    model, scene, truth = (tmp_path / "m.ply", tmp_path / "s.ply",
+                           tmp_path / "t.txt")
+    ply.write_ply(model, mp, None)
+    ply.write_ply(scene, sp, None)
+    validation.write_truth_file(truth, T_true)
+    bits, logs = _logged(_base(model, scene, truth, "--estimate_normals_k",
+                               "12"), tmp_path, capsys)
+    assert bits == ["1"]
+    _same_logs(logs)
+
+
+def test_cli_smooth_normals_on_noisy_scene(tmp_path, capsys):
+    """Mirror of test_cli_smooth_normals: heavy angular noise on the scene
+    normals, smoothed (order 1) before matching, with ICP."""
+    rng = np.random.default_rng(0)
+    mp, mn = synthetic.blob_cloud(rng, 90)
+    sp, sn, T_true = synthetic.plant_model(rng, mp, mn)
+    noisy = sn + rng.normal(scale=0.3, size=sn.shape).astype(np.float32)
+    noisy /= np.linalg.norm(noisy, axis=1, keepdims=True)
+    model, scene, truth = (tmp_path / "m.ply", tmp_path / "s.ply",
+                           tmp_path / "t.txt")
+    ply.write_ply(model, mp, mn)
+    ply.write_ply(scene, sp, noisy.astype(np.float32))
+    validation.write_truth_file(truth, T_true)
+    bits, logs = _logged(_base(model, scene, truth, "--smooth_normals", "1",
+                               "--icp_iterations", "10"), tmp_path, capsys)
+    assert bits == ["1"]
+    assert _same_logs(logs)["smoothed"] == [
+        "Smoothed scene normals: 1 passes, order 1, radius 0.05"]
+
+
+@pytest.mark.parametrize("extra,pad_free", [
+    ([], False), (["--scene_capacity", "4096"], True),
+    (["--show_normals", "false"], False)],
+    ids=["default", "scene_capacity", "no_normals"])
+def test_cli_visualize_export(scene_fixture, tmp_path, capsys, extra,
+                              pad_free):
+    """Mirrors of test_cli_visualize_export, _with_scene_capacity_pad_free
+    and test_cli_show_normals_export: the combined PLY and the HTML viewer
+    exist, hold what the JAX CLI's hold, and no pad row."""
+    _logged(_base(*scene_fixture, "--visualize", "true", *extra), tmp_path,
+            capsys)
+    got = ply.read_ply(str(tmp_path / "vis_port.ply"))
+    want = ply.read_ply(str(tmp_path / "vis_jax.ply"))
+    assert got.points.shape == want.points.shape
+    assert got.points.shape[0] > 0
+    assert {"red", "green", "blue"} <= set(got.extra)
+    for c in ("red", "green", "blue"):
+        np.testing.assert_array_equal(got.extra[c], want.extra[c])
+    shown = "--show_normals" not in extra
+    assert (got.normals is not None) == (want.normals is not None) == shown
+    if pad_free:
+        assert got.points.shape[0] < 4096
+    assert np.all(np.abs(got.points) < 1e3)
+    n_scene = int((got.extra["green"] == 255).sum())    # scenes are white
+    np.testing.assert_allclose(got.points[:n_scene], want.points[:n_scene],
+                               atol=1e-5)
+    np.testing.assert_allclose(got.points, want.points, atol=5e-3)
+    html = (tmp_path / "vis_port.html").read_text()
+    assert "model0@scene0" in html and "scene0" in html
+    assert "getContext" in html
+    assert len(html) == len((tmp_path / "vis_jax.html").read_text())
+
+
+def test_cli_visualize_html_off(scene_fixture, tmp_path, capsys):
+    vis = tmp_path / "v"
+    rc = tcli.main([str(a) for a in _base(
+        *scene_fixture, "--visualize", "true", "--visualize_html", "false",
+        "--visualize_out", vis)], device="cpu")
+    capsys.readouterr()
+    assert rc == 0 and (tmp_path / "v.ply").exists()
+    assert not (tmp_path / "v.html").exists()
 
 
 def test_cli_without_card_asks_for_the_cpu(scene_fixture, monkeypatch):

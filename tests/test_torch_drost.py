@@ -273,22 +273,271 @@ def test_carry_jax_saved_description(matched, tmp_path):
     assert td_ < 1e-4 and rd_ < 1e-3
 
 
-def test_unported_features_raise(matched, tmp_path):
+def _both_packages(kw, seed=0, **scene_kw):
+    """The same model and scene through both packages' match_with_state
+    under PPFConfig(**kw)."""
+    mp, mn, sp, sn, T = _scene(seed, **scene_kw)
+    cj, ct = ost.PPFConfig(**kw), pt.PPFConfig(**kw)
+    dj = ost.build_model_description(mp, mn, cj)
+    dt = pt.build_model_description(mp, mn, ct, device="cpu")
+    rj, capj = ost.match_with_state(dj, sp, sn, cj)
+    rt, capt = pt.match_with_state(dt, sp, sn, ct)
+    return dict(mp=mp, mn=mn, sp=sp, sn=sn, T=T, cj=cj, ct=ct, dj=dj, dt=dt,
+                rj=rj, rt=rt, capj=capj, capt=capt)
+
+
+@pytest.fixture(scope="module")
+def corr_matched():
+    return _both_packages(dict(max_poses=256, ref_point_df=2,
+                               engine="correlation"))
+
+
+def test_correlation_engine_e2e(corr_matched):
+    """engine="correlation" end to end: the JAX package's caps (no vote
+    buffer, the engine's own runs_cap), flags, accumulator and pose. Both
+    descriptions carry the block tables too, as bench.py relies on."""
+    m = corr_matched
+    assert tuple(m["capt"]) == tuple(m["capj"]) == (0, None, None, 256)
+    assert m["dt"].corr_tables is not None
+    assert m["dt"].fast_tables.block is not None
+    assert m["dt"].corr_tables.k_occ == m["dj"].corr_tables.k_occ
+    _check_pair(m, m["rj"], m["rt"], 2)
+    assert int(m["rt"].accumulator.sum()) == int(m["rt"].num_votes)
+
+
+def test_correlation_forced_runs_cap_overflow_retry(corr_matched):
+    """Mirror of test_correlation_runs_cap_overflow_and_retry: a starting
+    runs_cap far too small climbs the same capacity buckets in both
+    packages, and the result equals the uncapped one."""
+    m = corr_matched
+    rj, capj = jd._match_sized_caps(m["dj"], m["sp"], m["sn"], m["cj"],
+                                    runs_cap=128)
+    rt, capt = td._match_sized_caps(m["dt"], m["sp"], m["sn"], m["ct"],
+                                    runs_cap=128)
+    assert tuple(capt) == tuple(capj)
+    assert capt.runs_cap > 128 and capt.vote_cap == 0
+    assert not bool(rt.overflowed) and not bool(rj.overflowed)
+    assert torch.equal(rt.accumulator, m["rt"].accumulator)
+    assert int(rt.num_votes) == int(m["rt"].num_votes)
+    res = pt.match(m["dt"], m["sp"], m["sn"], m["ct"], runs_cap=128)
+    assert torch.equal(res.pose, m["rt"].pose)
+    # One bucket short of the need: one retry, the same final bucket.
+    short = capt.runs_cap // 2
+    assert tuple(td._match_sized_caps(m["dt"], m["sp"], m["sn"], m["ct"],
+                                      runs_cap=short)[1]) == \
+        tuple(jd._match_sized_caps(m["dj"], m["sp"], m["sn"], m["cj"],
+                                   runs_cap=short)[1])
+
+
+def test_match_with_state_correlation_engine(corr_matched):
+    """Mirror of the JAX package's test: the state carries runs_cap, and
+    its reuse gives the same pose."""
+    m = corr_matched
+    _, caps = td._match_loop(m["dt"], m["sp"], m["sn"], m["ct"], None, None,
+                             None, 128, 8192)
+    assert caps.runs_cap is not None
+    res2, caps2 = pt.match_with_state(m["dt"], m["sp"], m["sn"], m["ct"],
+                                      state=caps)
+    assert caps2 == caps
+    assert torch.equal(res2.pose, m["rt"].pose)
+    # A state whose runs_cap overflows falls back to exact sizing.
+    bad = td.MatchCaps(0, None, 128, 256)
+    res3, caps3 = pt.match_with_state(m["dt"], m["sp"], m["sn"], m["ct"],
+                                      state=bad)
+    assert not bool(res3.overflowed) and caps3 == m["capt"]
+    assert torch.equal(res3.pose, m["rt"].pose)
+
+
+def test_correlation_without_tables_raises(matched):
     m = matched
-    for kw, item in (({"engine": "correlation"}, "13"),
-                     ({"use_fnv_keys": True}, "12"),
-                     ({"rescore_poses": True}, "7")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            pt.build_model_description(m["mp"], m["mn"], pt.PPFConfig(**kw),
-                                       device="cpu")
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            pt.match(m["dt"], m["sp"], m["sn"], pt.PPFConfig(**kw))
-    dj = ost.build_model_description(m["mp"], m["mn"],
-                                     ost.PPFConfig(engine="correlation"))
-    path = tmp_path / "corr.osn.npz"
-    jser.save_model_description(path, dj)
-    with pytest.raises(NotImplementedError, match="correlation"):
-        tser.load_model_description(path, device="cpu")
+    cfg = pt.PPFConfig(max_poses=256, ref_point_df=2, engine="correlation")
+    with pytest.raises(ValueError, match="corr_tables"):
+        pt.match(m["dt"], m["sp"], m["sn"], cfg)
+    with pytest.raises(ValueError, match="corr_tables"):
+        td._match_core(m["dt"], m["sp"], m["sn"], ref_point_df=2, vote_cap=0,
+                       config=cfg)
+
+
+@pytest.mark.parametrize("engine", ["fast", "reference", "correlation"])
+def test_fnv_mode_equals_packed_mode_without_collisions(matched, engine):
+    """Mirror of test_fnv_mode_tallies_equal_packed_when_no_collisions, for
+    every engine: where the model's occupied keys hash without collision
+    (checked), FNV keying is a bijection of the key space and the
+    accumulator is the packed-key run's, bit for bit. Caps and flags are
+    the JAX package's FNV-mode ones."""
+    from objective_slam_tpu_torch.ops import hashing as th
+    m = matched
+    kw = dict(max_poses=256, ref_point_df=2, engine=engine)
+    cp, cf = pt.PPFConfig(**kw), pt.PPFConfig(**kw, use_fnv_keys=True)
+    dp = pt.build_model_description(m["mp"], m["mn"], cp, device="cpu")
+    df = pt.build_model_description(m["mp"], m["mn"], cf, device="cpu")
+    occ = torch.nonzero(dp.table.counts)[:, 0].to(torch.int32)
+    h = th.packed_key_fnv(occ, dp.d_dist, cp.d_angle)
+    assert len(torch.unique(h)) == len(h) and bool((h != 0).all())
+    assert df.fnv_remap.k_occ == len(occ)
+    assert df.num_keys == df.fnv_remap.occ_hashes.shape[0] == \
+        df.table.counts.shape[0]
+    rp, capp = pt.match_with_state(dp, m["sp"], m["sn"], cp)
+    rf, capf = pt.match_with_state(df, m["sp"], m["sn"], cf)
+    assert torch.equal(rf.accumulator, rp.accumulator)
+    assert int(rf.num_votes) == int(rp.num_votes)
+    assert capf == capp
+    torch.testing.assert_close(rf.pose, rp.pose, atol=1e-5, rtol=0)
+    cj = ost.PPFConfig(**kw, use_fnv_keys=True)
+    dj = ost.build_model_description(m["mp"], m["mn"], cj)
+    assert dj.fnv_remap.k_occ == df.fnv_remap.k_occ
+    assert dj.num_keys == df.num_keys
+    np.testing.assert_array_equal(
+        df.fnv_remap.occ_hashes.numpy().astype(np.uint32),
+        np.asarray(dj.fnv_remap.occ_hashes))
+    rj, capj = ost.match_with_state(dj, m["sp"], m["sn"], cj)
+    assert tuple(capf) == tuple(capj)
+    assert bool(rf.topk_saturated) == bool(rj.topk_saturated)
+    clean, bound = _flip_bound(dict(m, cj=ost.PPFConfig(**kw), ct=cp,
+                                    dj=ost.build_model_description(
+                                        m["mp"], m["mn"], ost.PPFConfig(**kw)),
+                                    dt=dp), 2)
+    diff = int(np.abs(np.asarray(rj.accumulator).astype(np.int64)
+                      - rf.accumulator.numpy()).sum())
+    assert diff == 0 if clean else diff <= bound
+
+
+def test_rescoring_with_distractors():
+    """Mirror of test_rescoring_with_distractors: the correlation engine
+    with rescoring among curved distractors, both packages on the same
+    scene: both recover the pose, and the port's is the JAX package's."""
+    rng = np.random.default_rng(0)
+    mp, mn = synthetic.blob_cloud(rng, 150, bumps=0.25)
+    dp1, dn1 = synthetic.blob_cloud(rng, 80, bumps=0.3)
+    dp2, dn2 = synthetic.blob_cloud(rng, 80, bumps=0.3)
+    cp = np.concatenate([dp1 * 1.2 + np.array([3.0, 0, 0]),
+                         dp2 * 0.9 + np.array([0, 3.0, 0])]) \
+        .astype(np.float32)
+    cn = np.concatenate([dn1, dn2]).astype(np.float32)
+    sp, sn, T = synthetic.plant_model(rng, mp, mn, cp, cn)
+    kw = dict(max_poses=512, engine="correlation", rescore_poses=True)
+    cj, ct = ost.PPFConfig(**kw), pt.PPFConfig(**kw)
+    dj = ost.build_model_description(mp, mn, cj)
+    dt = pt.build_model_description(mp, mn, ct, device="cpu")
+    rj, rt = ost.match(dj, sp, sn, cj), pt.match(dt, sp, sn, ct)
+    for pose in (np.asarray(rj.pose), rt.pose.numpy()):
+        assert jval.validate_pose(pose, T, dj.diameter, cj).match
+    tdist, rdist = (float(x) for x in ost.ops.transforms.ht_dist(
+        np.asarray(rj.pose), rt.pose.numpy()))
+    assert tdist < dt.d_dist and rdist < 2 * ct.d_angle
+    if np.array_equal(np.asarray(rj.accumulator), rt.accumulator.numpy()):
+        np.testing.assert_allclose(rt.pose.numpy(), np.asarray(rj.pose),
+                                   atol=1e-4)
+        np.testing.assert_allclose(float(rt.cluster_votes),
+                                   float(rj.cluster_votes), rtol=1e-5)
+
+
+def test_rescoring_rule_first_maximum_wins(matched, monkeypatch):
+    """The rescoring branch by its rule: only peaks within
+    rescore_min_vote_frac of the best clustered count are scored, the
+    winner maximises votes · (1 + score), the first maximum wins, and the
+    pose carries the clustered translation."""
+    from objective_slam_tpu_torch.ops import verify_pose
+    m = matched
+    cfg = pt.PPFConfig(max_poses=256, ref_point_df=2, rescore_poses=True)
+    seen = {}
+
+    def spy(poses, valid, *a, **k):
+        seen["valid"] = valid.clone()
+        seen["poses"] = poses.clone()
+        scores = torch.zeros(len(poses))
+        seen["scores"] = torch.where(valid, scores, -1.0)
+        return seen["scores"]
+
+    monkeypatch.setattr(verify_pose, "inlier_scores", spy)
+    res = pt.match(m["dt"], m["sp"], m["sn"], cfg)
+    near = res.clustered_counts >= np.float32(cfg.rescore_min_vote_frac) \
+        * res.clustered_counts.max()
+    assert torch.equal(seen["valid"], res.pose_keep & near)
+    combined = torch.where(seen["valid"], res.clustered_counts, -1.0)
+    win = int(torch.argmax(combined))
+    assert torch.equal(seen["poses"][win, :3, 3],
+                       res.clustered_translations[win])
+    monkeypatch.undo()
+    plain = pt.match(m["dt"], m["sp"], m["sn"], m["ct"])
+    assert torch.equal(res.accumulator, plain.accumulator)
+    # With every score equal, the rule falls back to the plain winner.
+    assert float(res.cluster_votes) == float(plain.cluster_votes)
+
+
+def test_rescoring_preserves_easy_recovery(matched):
+    m = matched
+    kw = dict(max_poses=256, ref_point_df=2, rescore_poses=True)
+    rj = ost.match(m["dj"], m["sp"], m["sn"], ost.PPFConfig(**kw))
+    rt = pt.match(m["dt"], m["sp"], m["sn"], pt.PPFConfig(**kw))
+    _check_pair(m, rj, rt, 2)
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("plain", {}), ("fnv", {"use_fnv_keys": True}),
+    ("correlation", {"engine": "correlation"})])
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_description_files_cross_load(matched, tmp_path, kind, kw, direction):
+    """A description saved by one package loads into the other and matches
+    like that package's own build, for packed, FNV-keyed and correlation
+    descriptions. The two files hold the same arrays with the same types."""
+    m = matched
+    kw = dict(max_poses=256, ref_point_df=2, **kw)
+    cj, ct = ost.PPFConfig(**kw), pt.PPFConfig(**kw)
+    dj = ost.build_model_description(m["mp"], m["mn"], cj)
+    dt = pt.build_model_description(m["mp"], m["mn"], ct, device="cpu")
+    pj, pt_ = tmp_path / "j.npz", tmp_path / "t.npz"
+    jser.save_model_description(pj, dj)
+    tser.save_model_description(pt_, dt)
+    same_tables = _triples(dj.table) == _triples(dt.table)
+    with np.load(pj) as zj, np.load(pt_) as zt:
+        assert sorted(zj.files) == sorted(zt.files)
+        assert ("fnv_occ_hashes" in zt.files) == (kind == "fnv")
+        for name in zj.files:
+            assert zt[name].dtype == zj[name].dtype, name
+            assert zt[name].shape == zj[name].shape, name
+            if same_tables or name in ("points", "normals", "vote_weights",
+                                       "d_dist", "meta", "fnv_occ_hashes",
+                                       "counts", "offsets", "max_count"):
+                np.testing.assert_array_equal(zt[name], zj[name], name)
+    if direction == "jax-to-port":
+        loaded = tser.load_model_description(pj, device="cpu")
+        assert (loaded.corr_tables is not None) == (kind == "correlation")
+        assert (loaded.fnv_remap is not None) == (kind == "fnv")
+        own = pt.match(dt, m["sp"], m["sn"], ct)
+        res = pt.match(loaded, m["sp"], m["sn"], ct)
+        if same_tables:
+            assert torch.equal(res.accumulator, own.accumulator)
+        td_, rd_ = (float(x) for x in pt.ops.transforms.ht_dist(res.pose,
+                                                                 own.pose))
+    else:
+        loaded = jser.load_model_description(pt_)
+        assert (loaded.corr_tables is not None) == (kind == "correlation")
+        assert (loaded.fnv_remap is not None) == (kind == "fnv")
+        own = ost.match(dj, m["sp"], m["sn"], cj)
+        res = ost.match(loaded, m["sp"], m["sn"], cj)
+        if same_tables:
+            np.testing.assert_array_equal(np.asarray(res.accumulator),
+                                          np.asarray(own.accumulator))
+        td_, rd_ = (float(x) for x in ost.ops.transforms.ht_dist(
+            np.asarray(res.pose), np.asarray(own.pose)))
+    assert td_ < 1e-4 and rd_ < 1e-3
+
+
+@pytest.mark.parametrize("kw", [{"engine": "correlation"},
+                                {"use_fnv_keys": True},
+                                {"rescore_poses": True}],
+                         ids=["correlation", "use_fnv_keys", "rescore_poses"])
+def test_ported_features_run(matched, kw):
+    """The three modes that used to raise NotImplementedError build and
+    match, and localize the planted model."""
+    m = matched
+    cfg = pt.PPFConfig(max_poses=256, ref_point_df=2, **kw)
+    desc = pt.build_model_description(m["mp"], m["mn"], cfg, device="cpu")
+    res = pt.match(desc, m["sp"], m["sn"], cfg)
+    assert not bool(res.overflowed)
+    assert jval.validate_pose(res.pose.numpy(), m["T"], desc.diameter,
+                              m["cj"]).match
 
 
 @pytest.fixture(scope="module")

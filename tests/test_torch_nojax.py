@@ -33,7 +33,10 @@ def test_import_leaves_jax_unloaded():
         "from objective_slam_tpu_torch.utils import ply, serialization, "
         "synthetic\n"
         "from objective_slam_tpu_torch import cli, pipeline\n"
-        "from objective_slam_tpu_torch.ops import fast_tally, voting_fast\n"
+        "from objective_slam_tpu_torch.ops import fast_tally, voting_fast, "
+        "hashing, verify_pose, voting_corr\n"
+        "from objective_slam_tpu_torch.utils import debug_dump, html_viewer, "
+        "pointcloud\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

@@ -157,3 +157,93 @@ def test_pack_key_and_num_keys():
     x = rng.uniform(0, 5, 200).astype(np.float32)
     np.testing.assert_array_equal(tppf.quant_downf(_t(x), 0.3).numpy(),
                                   np.asarray(jppf.quant_downf(x, 0.3)))
+
+
+@pytest.mark.parametrize("name", ["rotx", "roty", "rotz"])
+def test_axis_rotations(name):
+    thetas = np.float32([0.0, 0.7, -2.1, math.pi, 3 * math.pi / 2])
+    want = np.asarray(getattr(jtr, name)(thetas))
+    got = getattr(ttr, name)(_t(thetas)).numpy()
+    assert got.shape == (5, 4, 4)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_allclose(getattr(ttr, name)(0.7).numpy(),
+                               np.asarray(getattr(jtr, name)(0.7)), atol=ATOL)
+
+
+def test_trans_mat_and_rotate_vectors(poses):
+    rng, _, _, T = poses
+    v = rng.normal(size=(64, 3)).astype(np.float32)
+    np.testing.assert_array_equal(ttr.trans_mat(_t(v)).numpy(),
+                                  np.asarray(jtr.trans_mat(v)))
+    np.testing.assert_allclose(ttr.rotate_vectors(_t(T), _t(v)).numpy(),
+                               np.asarray(jtr.rotate_vectors(T, v)),
+                               atol=ATOL)
+
+
+def test_canonical_transform(poses):
+    """Mirror of test_canonical_transform_sends_ref_to_origin_normal_to_x,
+    and equal to the JAX package's matrices."""
+    rng = poses[0]
+    p = rng.normal(size=(64, 3)).astype(np.float32)
+    n = _unit(rng, (64, 3))
+    T = ttr.canonical_transform(_t(p), _t(n))
+    np.testing.assert_allclose(T.numpy(),
+                               np.asarray(jtr.canonical_transform(p, n)),
+                               atol=ATOL)
+    np.testing.assert_allclose(ttr.transform_points(T, _t(p)).numpy(), 0.0,
+                               atol=1e-4)
+    n0 = ttr.rotate_vectors(T, _t(n)).numpy()
+    np.testing.assert_allclose(n0[:, 1:], 0.0, atol=ATOL)
+    assert (n0[:, 0] > 0.99).all()
+
+
+def test_alpha_functions_and_wrap(poses):
+    rng = poses[0]
+    a, b, c = (rng.normal(size=(64, 3)).astype(np.float32) for _ in range(3))
+    n = _unit(rng, (64, 3))
+    np.testing.assert_allclose(ttr.alpha_about_x(_t(a), _t(b)).numpy(),
+                               np.asarray(jtr.alpha_about_x(a, b)), atol=ATOL)
+    np.testing.assert_allclose(ttr.alpha_angle(_t(a), _t(n), _t(c)).numpy(),
+                               np.asarray(jtr.alpha_angle(a, n, c)),
+                               atol=ATOL)
+    w = np.float32([0.0, 3.5, -3.5, math.pi, -math.pi, 6.4, -6.4, 100.0])
+    np.testing.assert_allclose(ttr.wrap_angle(_t(w)).numpy(),
+                               np.asarray(jtr.wrap_angle(w)), atol=ATOL)
+
+
+def test_trans_model_scene(poses):
+    """Mirror of test_trans_model_scene_matches_reference and of
+    test_alpha_decomposition: α = wrap(α_s − α_m)."""
+    rng = poses[0]
+    m_r, m_i, s_r, s_i = (rng.normal(size=(32, 3)).astype(np.float32)
+                          for _ in range(4))
+    n_m, n_s = _unit(rng, (32, 3)), _unit(rng, (32, 3))
+    want = jtr.trans_model_scene(m_r, n_m, m_i, s_r, n_s, s_i)
+    got = ttr.trans_model_scene(*(_t(x) for x in
+                                  (m_r, n_m, m_i, s_r, n_s, s_i)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+    alpha = ttr.wrap_angle(ttr.alpha_angle(_t(s_r), _t(n_s), _t(s_i))
+                           - ttr.alpha_angle(_t(m_r), _t(n_m), _t(m_i)))
+    diff = (alpha - got[2]).abs().numpy()
+    assert np.minimum(diff, 2 * math.pi - diff).max() < 1e-4
+
+
+def test_compute_ppf_disc_feature_and_bins():
+    rng = np.random.default_rng(12)
+    p = rng.normal(size=(40, 3)).astype(np.float32)
+    n = _unit(rng, (40, 3))
+    n[3] = 0.0                                  # a zero normal
+    args = (p[:, None], n[:, None], p[None], n[None])   # self pairs included
+    fj = np.asarray(jppf.compute_ppf(*args))
+    ft = tppf.compute_ppf(*(_t(a) for a in args))
+    assert tuple(ft.shape) == fj.shape == (40, 40, 4)
+    np.testing.assert_allclose(ft.numpy(), fj, atol=ATOL)
+    # Quantization of the same floats is exact in both packages.
+    np.testing.assert_array_equal(
+        tppf.disc_feature(_t(fj), 0.3, D_ANGLE).numpy(),
+        np.asarray(jppf.disc_feature(fj, 0.3, D_ANGLE)))
+    for g, w in zip(tppf.feature_bins(_t(fj), 0.3, D_ANGLE),
+                    jppf.feature_bins(fj, 0.3, D_ANGLE)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

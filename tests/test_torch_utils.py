@@ -182,3 +182,41 @@ def test_loaded_over_budget_description_builds_fallback(tmp_path):
         ft.cnt_off.numpy().view(np.uint32),
         np.asarray(dj.fast_tables.cnt_off.packed)[
             :dj.fast_tables.cnt_off.height].reshape(-1))
+
+
+def test_downsamplers_and_diameters_equal():
+    """The numpy helpers copied from the JAX package: the same arrays."""
+    rng = np.random.default_rng(2)
+    pts = rng.normal(size=(100, 3)).astype(np.float32) + 10
+    nrm = rng.normal(size=(100, 3)).astype(np.float32)
+    for got, want in zip(tpc.sequential_downsample(pts, nrm, 5),
+                         jpc.sequential_downsample(pts, nrm, 5)):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(tpc.random_downsample(pts, nrm, 0.3, seed=4),
+                         jpc.random_downsample(pts, nrm, 0.3, seed=4)):
+        np.testing.assert_array_equal(got, want)
+    assert tpc.random_downsample(pts, None, 0.3)[1] is None
+    assert tpc.sequential_downsample(pts, None, 5)[1] is None
+    assert tpc.bbox_center_radius(pts) == jpc.bbox_center_radius(pts)
+    assert tpc.bbox_diameter(pts) == jpc.bbox_diameter(pts)
+    for got, want in zip(tpc.center_scene(pts, offset=2.0),
+                         jpc.center_scene(pts, offset=2.0)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(tpc.center_scene(pts)[0].mean(axis=0), 1.0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("writer,reader", [(jpc, tpc), (tpc, jpc)],
+                         ids=["jax-to-port", "port-to-jax"])
+def test_trans_adj_sidecar_cross_read(tmp_path, writer, reader):
+    pts = np.random.default_rng(3).normal(size=(30, 3)).astype(np.float32) + 5
+    centered, T = tpc.center_scene(pts)
+    writer.write_trans_adj(tmp_path / "a.trans_adj", T)
+    tpc.write_trans_adj(tmp_path / "t.trans_adj", T)
+    jpc.write_trans_adj(tmp_path / "j.trans_adj", T)
+    assert (tmp_path / "t.trans_adj").read_text() == \
+        (tmp_path / "j.trans_adj").read_text()
+    T2 = reader.read_trans_adj(tmp_path / "a.trans_adj")
+    np.testing.assert_allclose(T2, T, rtol=1e-6)
+    np.testing.assert_allclose(pts @ T2[:3, :3].T + T2[:3, 3], centered,
+                               atol=1e-5)
