@@ -50,7 +50,14 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               point-to-plane ICP, normal-aware voxel grid), --use_fnv_keys,
               and --estimate_normals_k/--smooth_normals/--visualize on
               model points sampled by area and on the meshes' own vertices
- 13. times    medians over repetitions, each ended by a synchronize, each
+ 13. bench    bench_torch.run, the port's benchmark, at 3 seeds and 10
+              repetitions; its JSON line, gate, vote total, pose flags,
+              4/4 instances per seed and the est-normals match
+ 14. uwa-sweep  the dataset harness (tools/run_uwa_analog_torch.py) and
+              analyze_uwa: UWA-analog scenes 1-3 with the synthetic models
+              and scenes 1-2 with the real bone meshes, bits held against
+              the JAX harness's on the CPU
+ 15. times    medians over repetitions, each ended by a synchronize, each
               kernel's device time from torch.profiler, both kernels at
               every cluster size (blocks per reference row), and the new
               paths' stages
@@ -86,10 +93,22 @@ JAX_CPU_BITS = {"base": [1, 1, 0, 1], "corr": [1, 1, 1, 1],
                 "fnv": [1, 1, 0, 1], "normals": [1, 1, 1, 1],
                 "normals_mesh": [1, 1, 0, 0]}
 # Calls whose bits are printed beside the JAX package's and not held to
-# them: on the meshes' own vertices (regular grids) a third of para's points
-# have tied 16th neighbours, which top-k breaks differently from library
-# to library, and a weak peak can go either way.
+# them. On the meshes' own vertices the k-NN neighbour lists on the card
+# equal the CPU's, and the CPU's equal lax.top_k's (the `knn_vs_cpu`
+# numbers). The normals still differ by up to 0.04 degrees (float32 sums
+# in another order), a few keys with them, and trex's weak peak (129
+# votes on the CPU) goes to an alias on the card.
 BITS_NOT_HELD = ("normals_mesh",)
+# The bits the JAX package's harness (tools/run_uwa_analog.py, seed 7, on
+# the CPU) prints per scene for the sweeps of the `uwa-sweep` phase: scenes
+# 1-3 with the synthetic models (chef, trex, para, chicken) and scene 1
+# with the real meshes (skull, pelvis, humerus, scapula; one real-mesh
+# scene takes the JAX package about 90 minutes on the CPU).
+SWEEP_SCENES = {"synthetic": 3, "real": 1}
+JAX_CPU_SWEEP_BITS = {
+    "synthetic": [[1, 1, 0, 1], [1, 1, 1, 1], [1, 0, 0, 1]],
+    "real": [[1, 1, 0, 1]],
+}
 # Card normals against the same function on the CPU: at most this share of
 # the points may differ by more than this angle (segment sums in another
 # order move near-degenerate cells).
@@ -332,23 +351,26 @@ def top_kernels(fn, n=12):
     return rows[:n], sum(r[2] for r in rows if not r[0].startswith("aten::"))
 
 
-def kernel_ms(fn, kernel, reps):
+def kernel_ms(fn, kernel, reps, attempts=3):
     """Device time (ms) of one launch of the CUDA kernel whose name holds
     `kernel`, from torch.profiler over `reps` calls of fn (divided by the
     launches the trace holds): the kernel alone, without the wrapper's
-    host time between launches."""
+    host time between launches. A long process's trace can lose every
+    record of a kernel; the calls are then traced again, up to
+    `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if kernel in e.key and us > 0 and e.count > 0:
-            return us / 1e3 / e.count
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if kernel in e.key and us > 0 and e.count > 0:
+                return us / 1e3 / e.count
     raise RuntimeError(f"chip_smoke: no device time traced for {kernel}")
 
 
@@ -467,18 +489,20 @@ def bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hold_kernel(desc, keys, alpha, n_angle, vote_cap, seg_cap, label):
-    """The tally kernel that `desc` takes (K1 with block tables, else K2)
-    against its plain version on one path's own scene keys and caps. The
-    wrapper's arguments are built as the engine builds them
-    (voting_block._expand, voting_fast._pair_lookup); the two accumulators
-    must be equal and hold every vote. Returns (kernel name, the wrapper's
-    arguments, largest absolute difference)."""
+def hold_kernel(desc, keys, alpha, n_angle, vote_cap, seg_cap, label,
+                fallback=False):
+    """The tally kernel that `desc` takes (K1 with block tables, else K2;
+    K2 whenever `fallback`, as the fallback engine runs it) against its
+    plain version on one path's own scene keys and caps. The wrapper's
+    arguments are built as the engine builds them (voting_block._expand,
+    voting_fast._pair_lookup); the two accumulators must be equal and hold
+    every vote. Returns (kernel name, the wrapper's arguments, largest
+    absolute difference)."""
     from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
         voting_block, voting_fast
 
     n_model = desc.n_points
-    if desc.fast_tables.block is not None:
+    if desc.fast_tables.block is not None and not fallback:
         name, k = "block_tally", block_tally
         src_row, alpha_row, row_start_p, total, _, live = \
             voting_block._expand(keys, alpha, desc.fast_tables.block,
@@ -1094,7 +1118,178 @@ def uwa_cli_modes(dev, files, base):
             out[mode]["visualization_points"] = len(cloud.points)
             out[mode]["png_written"] = pathlib.Path(str(vis)
                                                     + ".png").exists()
+        if mode == "normals_mesh":
+            out[mode]["knn_vs_cpu"] = knn_vs_cpu(
+                modes[mode][modes[mode].index("--model_files") + 1]
+                .split(","), names, dev)
     return out, launches_by_mode
+
+
+def knn_vs_cpu(paths, names, dev):
+    """k-NN neighbours (k = 16) and normals of each vertex-only model PLY
+    on the card against the same functions on the CPU: the share of
+    distance-matrix entries that differ, of points whose neighbour list
+    differs, and of normals more than 1 degree apart."""
+    from objective_slam_tpu_torch.utils import ply, pointcloud as pc
+
+    out = {}
+    for name, path in zip(names, paths):
+        pts = torch.from_numpy(ply.read_ply(path).points)
+        d2_card = pc._sq_dist(pts.to(dev)).cpu()
+        d2_cpu = pc._sq_dist(pts)
+        idx_card = pc.knn_indices(pts.to(dev), 16).cpu()
+        idx_cpu = pc.knn_indices(pts, 16)
+        n_card = pc.estimate_normals_knn(pts.to(dev), k=16,
+                                         orient="outward").cpu().double()
+        n_cpu = pc.estimate_normals_knn(pts, k=16, orient="outward").double()
+        ang = torch.rad2deg(torch.arccos(
+            (n_card * n_cpu).sum(dim=1).clamp(-1, 1)))
+        out[name] = {
+            "points": len(pts),
+            "d2_entries_differ": float((d2_card != d2_cpu).double().mean()),
+            "neighbour_lists_differ": float(
+                (idx_card != idx_cpu).any(dim=1).double().mean()),
+            "normals_over_1deg": float((ang > 1.0).double().mean()),
+            "normals_max_deg": float(ang.max())}
+    return out
+
+
+def bench_phase(dev):
+    """Phase 13: bench_torch.run on the card, 3 seeds and 10 repetitions.
+    Holds its gate (raised inside run), the seed-0 vote total, the pose
+    flags, 4/4 instances per seed and the est-normals match; then K1 on
+    every seed's keys at the fixed caps and on the est-normals view, and K2
+    on the gate's keys at its caps. Returns the JSON line and the launches
+    of the run."""
+    import bench_torch
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally
+    from objective_slam_tpu_torch.utils import pointcloud as pc
+
+    block_tally.launches = fast_tally.launches = 0
+    line, ctx = bench_torch.run(dev, n_seeds=3, reps=10)
+    sync(dev)
+    launches = {"block_tally": block_tally.launches,
+                "fast_tally": fast_tally.launches}
+    extra = line["extra"]
+    check(extra["tally_bitequal_on_device"], "bench: K1 and K2 bit-equal")
+    check(extra["num_votes"] == BENCH_VOTES
+          and extra["per_seed"][0]["num_votes"] == BENCH_VOTES,
+          f"bench: seed 0 casts {BENCH_VOTES} votes, got "
+          f"{extra['num_votes']}")
+    check(extra["readable_engine_flip_rate"] < 1e-4, "bench: flip rate")
+    check(extra["pose_match"] and extra["pose_match_corr"],
+          "bench: pose_match and pose_match_corr")
+    check(extra["instances_found"] == [N_INSTANCES] * 3,
+          f"bench: instances {extra['instances_found']}")
+    check(extra["est_normals"]["match"], "bench: est-normals run matches")
+    check(not extra["overflowed"], "bench: no overflow")
+    check(launches["block_tally"] > 0 and launches["fast_tally"] > 0,
+          f"bench launched K1 and K2 ({launches})")
+
+    desc, cfg = ctx["desc"], ctx["cfg"]
+    caps = drost.MatchCaps(ctx["cap"], ctx["seg_cap"], None, cfg.max_poses)
+    for s, (sp, sn, _) in enumerate(ctx["scenes"]):
+        vox = ctx["vox_of"](sp, sn)
+        _, _, _, keys, alpha, _ = hold_scene(desc, vox.points, vox.normals,
+                                             cfg, f"bench seed{s}",
+                                             caps=caps)
+        if s == 0:
+            hold_kernel(desc, keys, alpha, cfg.n_angle, ctx["cap_fast_gate"],
+                        None, "bench gate (fallback engine)", fallback=True)
+            check(HOLDS[-1]["kernel"] == "fast_tally"
+                  and HOLDS[-1]["votes"] == BENCH_VOTES,
+                  "bench gate held K2 on every vote")
+        del keys, alpha
+    vis = ctx["vis_dev"]
+    vox = pc.voxel_downsample(vis, ctx["est_normals"](vis),
+                              ctx["scene_leaf"], capacity=ctx["vis_cap"])
+    hold_scene(ctx["desc_est"], vox.points, vox.normals, cfg,
+               "bench est-normals",
+               caps=drost.MatchCaps(ctx["cap_e"], ctx["seg_e"], None,
+                                    cfg.max_poses))
+    return line, launches
+
+
+def uwa_sweep(dev, workdir):
+    """Phase 14: the dataset harness (tools/run_uwa_analog_torch.py) on the
+    card, with analyze_uwa on its logs: scenes 1-3 with the synthetic
+    models (the packed argv) and scenes 1-2 with the real meshes (the
+    real-mesh argv), bits held against the JAX harness's on the CPU. Each
+    model's match is recorded as in traced_cli; every model that launched
+    K1 or K2 has that kernel held on its own keys. Returns the numbers and
+    the launches of each sweep."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import run_uwa_analog_torch as harness
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally
+
+    out, launches_by_kind = {}, {}
+    for kind, n_scenes in SWEEP_SCENES.items():
+        records = []
+        plain_match = drost.match
+
+        def counted_match(model, sp, sn, config, *a, **k):
+            k1, k2 = block_tally.launches, fast_tally.launches
+            t0 = time.perf_counter()
+            res = plain_match(model, sp, sn, config, *a, **k)
+            sync(dev)
+            records.append(dict(desc=model, sp=sp, sn=sn, cfg=config,
+                                ms=(time.perf_counter() - t0) * 1e3,
+                                k1=block_tally.launches - k1,
+                                k2=fast_tally.launches - k2))
+            return res
+
+        args = harness.parse_args([
+            "--scenes", str(n_scenes), "--models", kind,
+            "--outdir", str(workdir / kind)])
+        drost.match = counted_match
+        block_tally.launches = fast_tally.launches = 0
+        t0 = time.perf_counter()
+        try:
+            summary = harness.sweep(args, dev)
+        finally:
+            drost.match = plain_match
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {"block_tally": block_tally.launches,
+                    "fast_tally": fast_tally.launches}
+        names = summary["models"]
+        check(len(records) == n_scenes * len(names),
+              f"{kind} sweep: one match per scene and model")
+        want = JAX_CPU_SWEEP_BITS[kind]
+        check(want is None or summary["bits"] == want,
+              f"{kind} sweep: bits {summary['bits']}, the JAX harness "
+              f"prints {want}")
+        check(len(summary["trials"]) == n_scenes * len(names),
+              f"{kind} sweep: analyze_uwa read every trial")
+        check(summary["match_rate"] == float(np.mean(summary["bits"])),
+              f"{kind} sweep: analyze_uwa's match rate is the CLI's bits'")
+        if kind == "real":
+            check(launches == {"block_tally": 0, "fast_tally": 0}
+                  and all(r["cfg"].engine == "correlation" for r in records),
+                  "real-mesh sweep: correlation engine, no tally kernel")
+        else:
+            check(launches["block_tally"] > 0 and launches["fast_tally"] > 0,
+                  f"synthetic sweep launched K1 and K2 ({launches})")
+        for i, r in enumerate(records):
+            if r["k1"] + r["k2"] > 0:
+                kernel = hold_scene(
+                    r["desc"], r["sp"], r["sn"], r["cfg"],
+                    f"uwa-sweep-{kind} scene{i // len(names) + 1} "
+                    f"{names[i % len(names)]}")[0]
+                check((r["k1"] > 0) == (kernel == "block_tally"),
+                      f"{kind} sweep: held the kernel it launched")
+        out[kind] = {
+            "bits": summary["bits"], "jax_cpu_bits": want,
+            "match_rate": summary["match_rate"],
+            "per_model": summary["per_model"],
+            "occlusion_curve": summary["occlusion_curve"],
+            "capacity": summary["capacity"], "sweep_ms": ms,
+            "match_ms": [r["ms"] for r in records], "launches": launches}
+        launches_by_kind[kind] = launches
+        del records
+    return out, launches_by_kind
 
 
 def sync(dev):
@@ -1248,6 +1443,15 @@ def main() -> int:
     with Phase("uwa-cli-modes"):
         modes_numbers, launches_modes = uwa_cli_modes(dev, uwa_fileset, uwa)
         print("uwa-cli-modes: " + json.dumps(modes_numbers))
+
+    with Phase("bench"):
+        bench_line, launches_bench = bench_phase(dev)
+        print("bench: " + json.dumps(bench_line))
+
+    with Phase("uwa-sweep"):
+        sweep_numbers, launches_sweep = uwa_sweep(dev,
+                                                  ROOT / "build" / "uwa_sweep")
+        print("uwa-sweep: " + json.dumps(sweep_numbers))
 
     with Phase("times"):
         cap, seg_cap = st["cap"], st["seg_cap"]
@@ -1470,6 +1674,8 @@ def main() -> int:
                  "fnv-bench": launches_fnv_bench,
                  "fnv-trex": launches_fnv_trex}
         paths.update({f"uwa-cli-{m}": l for m, l in launches_modes.items()})
+        paths["bench"] = launches_bench
+        paths.update({f"uwa-sweep-{k}": l for k, l in launches_sweep.items()})
         return {name: l[kernel] for name, l in paths.items()}
 
     # Every comparison of a kernel with its plain version on a driven

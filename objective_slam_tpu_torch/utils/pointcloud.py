@@ -14,6 +14,7 @@ same from run to run on the card.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -212,24 +213,81 @@ def _orient(normal, p, viewpoint, orient):
     return torch.where(flip[:, None], -normal, normal)
 
 
+# Rows of the distance matrix re-read at once to break ties at the k-th
+# neighbour: a float32 copy and a float32 key of this many bytes each.
+_TIE_CHUNK_BYTES = 256 << 20
+
+
+def _sq_dist(p):
+    """The (n, n) float32 matrix ‖a‖² + ‖b‖² − 2a·b of the JAX package
+    (pointcloud.py:246-249), rounded as XLA:CPU rounds it, on any device:
+    ‖a‖² as (x² + y²) + z², and a·b as the fused multiply-add chain
+    fma(z, z', fma(y, y', x·x')) that the CPU matrix products evaluate. A
+    cuBLAS product need not round a·b so, and on regular grids an ulp
+    decides which neighbour is k-th."""
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    sq = (x * x + y * y) + z * z
+    dot = torch.outer(x, x)
+    dot.addcmul_(y[:, None], y[None, :])
+    dot.addcmul_(z[:, None], z[None, :])
+    d2 = sq[:, None] + sq[None, :]
+    return d2.sub_(dot, alpha=2.0)
+
+
+def knn_indices(p, k: int):
+    """The k nearest points of each point of p (n, 3), self included, as
+    `lax.top_k(-d2, k)` gives them (pointcloud.py:250-252): the k smallest
+    d2 = ‖a‖² + ‖b‖² − 2a·b of each row, in ascending d2 and, among equal
+    d2, ascending column. `torch.topk` keeps an arbitrary subset of the
+    values tied at the k-th place; a row where the (k+1)-th value equals
+    the k-th has its tied places refilled with the lowest tied columns.
+    Returns (n, k) int64."""
+    n = p.shape[0]
+    k = min(k, n)
+    d2 = _sq_dist(p)
+    kk = min(k + 1, n)
+    neg, idx = torch.topk(-d2, kk, dim=1)          # -d2 descending
+    val = -neg[:, :k]                               # d2 ascending
+    idx = idx[:, :k].contiguous()
+    if kk > k:
+        t = val[:, k - 1]
+        tied_rows = torch.nonzero(-neg[:, k] == t)[:, 0]
+        # Places that hold the k-th value: the last (k − first) of the row.
+        first = torch.sum(val < t[:, None], dim=1)
+        step = max(1, _TIE_CHUNK_BYTES // (4 * n))
+        col = torch.arange(n, device=p.device, dtype=torch.float32)
+        for lo in range(0, tied_rows.numel(), step):
+            r = tied_rows[lo:lo + step]
+            # The lowest columns at d2 == t, ascending: top-k of −column.
+            key = torch.where(d2[r] == t[r, None], -col, -math.inf)
+            low = (-torch.topk(key, k, dim=1).values).to(torch.int64)
+            f = first[r]
+            place = torch.arange(k, device=p.device)
+            from_low = torch.clamp(place[None, :] - f[:, None], min=0)
+            idx[r] = torch.where(place[None, :] < f[:, None], idx[r],
+                                 torch.gather(low, 1, from_low))
+    # Equal d2 in ascending column: sort by column, then stably by d2.
+    idx, _ = torch.sort(idx, dim=1)
+    order = torch.sort(torch.gather(d2, 1, idx), dim=1, stable=True).indices
+    del d2
+    return torch.gather(idx, 1, order)
+
+
 def estimate_normals_knn(points, k: int = 16, viewpoint=(0.0, 0.0, 0.0),
                          orient: str = "viewpoint", device=None):
-    """k-NN PCA surface normals (pointcloud.py:226-266): the n×n distance
-    matrix as ‖a‖² + ‖b‖² − 2a·b, the k nearest (self included), and the
-    smallest-eigenvalue eigenvector of each neighbourhood covariance.
+    """k-NN PCA surface normals (pointcloud.py:226-266): the k nearest
+    points of `knn_indices` (self included) and the smallest-eigenvalue
+    eigenvector of each neighbourhood covariance, summed over the
+    neighbours in that order.
 
     orient "viewpoint" flips toward `viewpoint` (range scans); "outward"
     flips away from the cloud centroid (closed objects). Model and scene
     need the same convention. The distance matrix takes 4·n² bytes, as in
-    the JAX package: 2.7 GB at 26,000 points."""
+    the JAX package (2.7 GB at 26,000 points), and twice that while it is
+    built."""
     p = as_tensor(points, device)
-    n = p.shape[0]
-    k = min(k, n)
-    sq = torch.sum(p * p, dim=1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (p @ p.T)
-    idx = torch.topk(-d2, k, dim=1).indices
-    del d2
-    nbrs = p[idx]                                                 # (n, k, 3)
+    k = min(k, p.shape[0])
+    nbrs = p[knn_indices(p, k)]                                   # (n, k, 3)
     centered = nbrs - torch.mean(nbrs, dim=1, keepdim=True)
     cov = torch.einsum("nki,nkj->nij", centered, centered) / k
     return _orient(_smallest_eigvec_sym3(cov), p, viewpoint, orient)

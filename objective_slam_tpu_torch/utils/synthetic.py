@@ -300,9 +300,14 @@ REAL_MESHES = {
     "scapula": ("BONEScapula_L.stl", 86.28052),
 }
 REAL_MODEL_DIAMS = {name: diam for name, (_, diam) in REAL_MESHES.items()}
+# The package's copy of those meshes (dm_control 1.0.43, Apache-2.0; see
+# the NOTICE there).
+REAL_MESH_DIR = Path(__file__).resolve().parent.parent / "assets" / \
+    "dog_bones"
 
 
-def uwa_real_models(mesh_dir, n_samples: int = 6000, seed: int = 123):
+def uwa_real_models(mesh_dir=REAL_MESH_DIR, n_samples: int = 6000,
+                    seed: int = 123):
     """The four scanned bone meshes of REAL_MESHES, read from `mesh_dir`,
     scaled to their UWA diameters and sampled uniformly by area with
     interpolated normals (run_uwa_analog.py:89-119; the raw vertices of

@@ -1,6 +1,7 @@
 """The port must run where JAX is absent (the GPU machine has none):
-importing it loads neither jax nor the JAX package, and no module of it
-or chip_smoke.py names either in an import."""
+importing it loads neither jax nor the JAX package, and no module of it,
+chip_smoke.py, bench_torch.py or tools/run_uwa_analog_torch.py names
+either (or bench.py) in an import."""
 
 import ast
 import pathlib
@@ -36,8 +37,12 @@ def test_import_leaves_jax_unloaded():
         "from objective_slam_tpu_torch.ops import fast_tally, voting_fast, "
         "hashing, verify_pose, voting_corr\n"
         "from objective_slam_tpu_torch.utils import debug_dump, html_viewer, "
-        "pointcloud\n"
+        "pointcloud, profiling\n"
+        "from objective_slam_tpu_torch import io_native\n"
         "import chip_smoke\n"
+        "import bench_torch\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import run_uwa_analog_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -48,7 +53,8 @@ def test_import_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                          ROOT / "tools" / "run_uwa_analog_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
