@@ -57,7 +57,17 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               analyze_uwa: UWA-analog scenes 1-3 with the synthetic models
               and scenes 1-2 with the real bone meshes, bits held against
               the JAX harness's on the CPU
- 15. times    medians over repetitions, each ended by a synchronize, each
+ 15. tsdf     the KinFu TSDF smoke (tools/tsdf_smoke_torch.py) at its
+              defaults: 256³ volume of 2 cm voxels, 8 posed 240² frames
+              fused dense and banded, raycast, extraction, recognition,
+              then a 48-frame tracked orbit and recognition on the tracked
+              volume; holds 47 frames tracked, none of the first 23 lost
+              and their drift bounded, both recognitions and no cap
+              overflow, and prints the whole orbit beside the JAX
+              package's TPU and CPU figures; the recognitions' tally
+              kernel held on their own keys; each stage's peak memory and
+              one traced tracked frame's busy share
+ 16. times    medians over repetitions, each ended by a synchronize, each
               kernel's device time from torch.profiler, both kernels at
               every cluster size (blocks per reference row), and the new
               paths' stages
@@ -109,6 +119,31 @@ JAX_CPU_SWEEP_BITS = {
     "synthetic": [[1, 1, 0, 1], [1, 1, 1, 1], [1, 0, 0, 1]],
     "real": [[1, 1, 0, 1]],
 }
+# The tracked orbit of the `tsdf` phase against the JAX package's
+# tools/tsdf_smoke.py at the same defaults: its TPU figures
+# (docs/eval/tsdf_smoke_256.json) and its figures on the CPU (XLA:CPU; over
+# the first 23 tracked frames the largest drift, then the whole orbit's).
+# Past frame 23 the orbit sits at the edge of projective ICP's basin: the
+# JAX package on the CPU drifts past its TPU run's largest drift at frame
+# 24 and loses 3 frames later, and whether a run keeps the orbit turns on
+# float32 rounding (PERF.md §6). The first TSDF_HELD_FRAMES tracked
+# frames are held to no lost frame and a drift of at most twice the TPU
+# run's whole-orbit figures; the whole orbit is printed beside the
+# references, and recognition on the tracked volume is held.
+TSDF_JAX_REF = {
+    "tpu": {"held_frames_max_rot_deg": 1.6193083987809103,
+            "held_frames_max_trans": 0.04129612818360329,
+            "lost_frames": 0, "max_drift_rot_deg": 3.119226584973879,
+            "max_drift_trans": 0.06719598919153214,
+            "recognize_rot_err_deg": 6.367966363215893},
+    "cpu": {"held_frames_max_rot_deg": 1.7877219739715016,
+            "held_frames_max_trans": 0.0363161601126194,
+            "lost_frames": 3, "max_drift_rot_deg": 100.1967919163902,
+            "max_drift_trans": 0.5836743712425232,
+            "recognize_rot_err_deg": 3.1916912635297177},
+}
+TSDF_HELD_FRAMES = 23
+TSDF_DRIFT_BOUND = {"rot_deg": 6.24, "trans": 0.134}
 # Card normals against the same function on the CPU: at most this share of
 # the points may differ by more than this angle (segment sums in another
 # order move near-degenerate cells).
@@ -1292,6 +1327,107 @@ def uwa_sweep(dev, workdir):
     return out, launches_by_kind
 
 
+def tsdf_phase(dev, workdir):
+    """Phase 15: tools/tsdf_smoke_torch.run at its defaults on the card,
+    with drost.match wrapped so that each recognition's kernel launches
+    are counted and its inputs kept. Holds the orbit and recognition
+    criteria, then the tally kernel of each distinct recognition input on
+    its own keys and caps, and traces one tracked frame. Writes the smoke's
+    whole line to workdir. Returns the numbers and the launches of the
+    run."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import tsdf_smoke_torch as smoke
+    from objective_slam_tpu_torch.models import drost, tsdf
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally
+
+    records = []
+    plain_match = drost.match
+
+    def counted_match(model, sp, sn, config, *a, **k):
+        k1, k2 = block_tally.launches, fast_tally.launches
+        res = plain_match(model, sp, sn, config, *a, **k)
+        records.append(dict(desc=model, sp=sp, sn=sn, cfg=config,
+                            k1=block_tally.launches - k1,
+                            k2=fast_tally.launches - k2))
+        return res
+
+    drost.match = counted_match
+    block_tally.launches = fast_tally.launches = 0
+    t0 = time.perf_counter()
+    try:
+        line, ctx = smoke.run(smoke.parse_args([]), dev)
+    finally:
+        drost.match = plain_match
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"block_tally": block_tally.launches,
+                "fast_tally": fast_tally.launches}
+    workdir.mkdir(parents=True, exist_ok=True)
+    (workdir / "tsdf_smoke.json").write_text(json.dumps(line) + "\n")
+
+    trk = line["tracking"]
+    check(line["dims"] == 256 and line["band_blocks_total"] == 32768,
+          "tsdf: a 256³ volume")
+    check(trk["frames_tracked"] == 47 and len(trk["per_frame"]) == 47,
+          f"tsdf: 47 frames tracked ({trk['frames_tracked']})")
+    held = trk["per_frame"][:TSDF_HELD_FRAMES]
+    held_drift = {"lost_frames": sum(f["lost"] for f in held),
+                  "max_rot_deg": max(f["rot_deg"] for f in held),
+                  "max_trans": max(f["trans"] for f in held)}
+    check(held_drift["lost_frames"] == 0,
+          f"tsdf: none of the first {TSDF_HELD_FRAMES} tracked frames lost "
+          f"({held_drift})")
+    check(held_drift["max_rot_deg"] <= TSDF_DRIFT_BOUND["rot_deg"]
+          and held_drift["max_trans"] <= TSDF_DRIFT_BOUND["trans"],
+          f"tsdf: drift over the first {TSDF_HELD_FRAMES} tracked frames "
+          f"{held_drift} within {TSDF_DRIFT_BOUND}")
+    check(line["match"] and trk["recognize_match"],
+          f"tsdf: both recognitions match ({line['trans_err']:.4f} / "
+          f"{line['rot_err_deg']:.2f}°, {trk['recognize_trans_err']:.4f} / "
+          f"{trk['recognize_rot_err_deg']:.2f}°)")
+    check(not any(line["overflowed"].values()),
+          f"tsdf: no cap overflowed ({line['overflowed']})")
+    check(all(math.isfinite(trk[k]) for k in ("max_drift_trans",
+                                             "max_drift_rot_deg")),
+          "tsdf: finite drift")
+    check(len(records) == 3, f"tsdf: three recognitions ({len(records)})")
+    kernel = "fast_tally" if records[0]["desc"].fast_tables.block is None \
+        else "block_tally"
+    check(launches[kernel] >= 3 and all(
+        r["k1" if kernel == "block_tally" else "k2"] >= 1 for r in records),
+        f"tsdf: every recognition launched {kernel} ({launches})")
+    # Recognitions 1 and 2 (cold, warm) see the same surface; 3 the tracked.
+    for label, r in (("tsdf posed volume", records[0]),
+                     ("tsdf tracked volume", records[2])):
+        held = hold_scene(r["desc"], r["sp"], r["sn"], r["cfg"], label)[0]
+        check(held == kernel, f"{label}: held {held}")
+
+    # One tracked frame (the orbit's last, from its start pose) traced.
+    depth, init = ctx["last_frame"]
+    rec2, intr = ctx["rec2"], ctx["intr"]
+
+    def tracked_frame():
+        return tsdf.track_frame(rec2.volume, depth, intr, init).T_cw
+
+    tracked_frame()
+    sync(dev)
+    frame_ms = statistics.median(host_ms(tracked_frame, 5))
+    rows, device_ms = top_kernels(tracked_frame, n=10)
+    numbers = {k: v for k, v in line.items() if k != "tracking"}
+    numbers["tracking"] = {k: v for k, v in trk.items() if k != "per_frame"}
+    numbers["tracking"]["rot_deg_by_frame"] = [
+        round(f["rot_deg"], 3) for f in trk["per_frame"]]
+    numbers["tracking"]["held_frames"] = dict(held_drift,
+                                              frames=TSDF_HELD_FRAMES)
+    numbers.update({
+        "jax_reference": TSDF_JAX_REF, "drift_bound": TSDF_DRIFT_BOUND,
+        "smoke_ms": ms, "launches": launches,
+        "tracked_frame": {"host_ms": frame_ms, "device_ms": device_ms,
+                          "busy_share": device_ms / frame_ms,
+                          "top_kernels": rows}})
+    return numbers, launches
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1452,6 +1588,10 @@ def main() -> int:
         sweep_numbers, launches_sweep = uwa_sweep(dev,
                                                   ROOT / "build" / "uwa_sweep")
         print("uwa-sweep: " + json.dumps(sweep_numbers))
+
+    with Phase("tsdf"):
+        tsdf_numbers, launches_tsdf = tsdf_phase(dev, ROOT / "build" / "tsdf")
+        print(f"tsdf on {card}: " + json.dumps(tsdf_numbers))
 
     with Phase("times"):
         cap, seg_cap = st["cap"], st["seg_cap"]
@@ -1676,6 +1816,7 @@ def main() -> int:
         paths.update({f"uwa-cli-{m}": l for m, l in launches_modes.items()})
         paths["bench"] = launches_bench
         paths.update({f"uwa-sweep-{k}": l for k, l in launches_sweep.items()})
+        paths["tsdf"] = launches_tsdf
         return {name: l[kernel] for name, l in paths.items()}
 
     # Every comparison of a kernel with its plain version on a driven

@@ -218,15 +218,20 @@ def _orient(normal, p, viewpoint, orient):
 _TIE_CHUNK_BYTES = 256 << 20
 
 
-def _sq_dist(p):
+def _sq_dist(p, fused_norms: bool = False):
     """The (n, n) float32 matrix ‖a‖² + ‖b‖² − 2a·b of the JAX package
     (pointcloud.py:246-249), rounded as XLA:CPU rounds it, on any device:
-    ‖a‖² as (x² + y²) + z², and a·b as the fused multiply-add chain
-    fma(z, z', fma(y, y', x·x')) that the CPU matrix products evaluate. A
-    cuBLAS product need not round a·b so, and on regular grids an ulp
-    decides which neighbour is k-th."""
+    a·b as the fused multiply-add chain fma(z, z', fma(y, y', x·x')) that
+    the CPU matrix products evaluate, and ‖a‖² as (x² + y²) + z² where the
+    JAX function runs eagerly, or as fma(z, z, fma(y, y, x²)) where a
+    compiled caller fuses the squares into their sum (fused_norms; the
+    TSDF surface extraction). A cuBLAS product need not round a·b so, and
+    on regular grids an ulp decides which neighbour is k-th."""
     x, y, z = p[:, 0], p[:, 1], p[:, 2]
-    sq = (x * x + y * y) + z * z
+    if fused_norms:
+        sq = torch.addcmul(torch.addcmul(x * x, y, y), z, z)
+    else:
+        sq = (x * x + y * y) + z * z
     dot = torch.outer(x, x)
     dot.addcmul_(y[:, None], y[None, :])
     dot.addcmul_(z[:, None], z[None, :])
@@ -234,17 +239,17 @@ def _sq_dist(p):
     return d2.sub_(dot, alpha=2.0)
 
 
-def knn_indices(p, k: int):
+def knn_indices(p, k: int, fused_norms: bool = False):
     """The k nearest points of each point of p (n, 3), self included, as
     `lax.top_k(-d2, k)` gives them (pointcloud.py:250-252): the k smallest
     d2 = ‖a‖² + ‖b‖² − 2a·b of each row, in ascending d2 and, among equal
     d2, ascending column. `torch.topk` keeps an arbitrary subset of the
     values tied at the k-th place; a row where the (k+1)-th value equals
     the k-th has its tied places refilled with the lowest tied columns.
-    Returns (n, k) int64."""
+    fused_norms as in `_sq_dist`. Returns (n, k) int64."""
     n = p.shape[0]
     k = min(k, n)
-    d2 = _sq_dist(p)
+    d2 = _sq_dist(p, fused_norms)
     kk = min(k + 1, n)
     neg, idx = torch.topk(-d2, kk, dim=1)          # -d2 descending
     val = -neg[:, :k]                               # d2 ascending
@@ -274,7 +279,8 @@ def knn_indices(p, k: int):
 
 
 def estimate_normals_knn(points, k: int = 16, viewpoint=(0.0, 0.0, 0.0),
-                         orient: str = "viewpoint", device=None):
+                         orient: str = "viewpoint", device=None,
+                         fused_norms: bool = False):
     """k-NN PCA surface normals (pointcloud.py:226-266): the k nearest
     points of `knn_indices` (self included) and the smallest-eigenvalue
     eigenvector of each neighbourhood covariance, summed over the
@@ -284,10 +290,11 @@ def estimate_normals_knn(points, k: int = 16, viewpoint=(0.0, 0.0, 0.0),
     flips away from the cloud centroid (closed objects). Model and scene
     need the same convention. The distance matrix takes 4·n² bytes, as in
     the JAX package (2.7 GB at 26,000 points), and twice that while it is
-    built."""
+    built. fused_norms: the distances as the JAX function rounds them
+    inside a compiled caller (`_sq_dist`)."""
     p = as_tensor(points, device)
     k = min(k, p.shape[0])
-    nbrs = p[knn_indices(p, k)]                                   # (n, k, 3)
+    nbrs = p[knn_indices(p, k, fused_norms)]                                   # (n, k, 3)
     centered = nbrs - torch.mean(nbrs, dim=1, keepdim=True)
     cov = torch.einsum("nki,nkj->nij", centered, centered) / k
     return _orient(_smallest_eigvec_sym3(cov), p, viewpoint, orient)

@@ -1,7 +1,7 @@
 """Synthetic scenes with known ground truth (numpy only).
 
-Copies of ``objective_slam_tpu.utils.synthetic`` (synthetic.py:17-228,
-266) — the same random draws in the same order, so the same seed gives the
+Copies of ``objective_slam_tpu.utils.synthetic`` (synthetic.py:17-266)
+— the same random draws in the same order, so the same seed gives the
 same arrays — plus ``bin_picking_scene``, a copy of ``bench.build_scene``
 (bench.py:89-138), and the UWA-analog models and scenes of
 ``tools/run_uwa_analog.py`` (``build_models``, ``build_scene``, :44-69,
@@ -261,6 +261,43 @@ def partial_view(points, normals, viewpoint, res: int = 96,
     np.minimum.at(zbuf, pix[front], depth[front])
     visible = front & (depth <= zbuf[pix] * (1.0 + depth_tol))
     return visible
+
+
+def look_at(eye, target, up=(0.0, 0.0, 1.0)):
+    """World→camera 4×4 (T_cw) for a camera at `eye` looking at `target`
+    (camera convention: +z forward, +x right, +y down)."""
+    eye = np.asarray(eye, np.float64)
+    fwd = np.asarray(target, np.float64) - eye
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, np.asarray(up, np.float64))
+    if np.linalg.norm(right) < 1e-9:
+        right = np.cross(fwd, [1.0, 0.0, 0.0])
+    right /= np.linalg.norm(right)
+    down = np.cross(fwd, right)
+    R_wc = np.stack([right, down, fwd], axis=1)     # camera axes in world
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R_wc.T
+    T[:3, 3] = -R_wc.T @ eye
+    return T
+
+
+def render_depth(points, T_cw, intrinsics, shape):
+    """Z-buffer a point cloud into a depth image — the synthetic RGB-D
+    sensor of the TSDF path (min camera depth per pixel; 0 = no hit).
+    Returns (h, w) float32."""
+    h, w = shape
+    fx, fy, cx, cy = intrinsics
+    T = np.asarray(T_cw, np.float64)
+    pc_ = np.asarray(points, np.float64) @ T[:3, :3].T + T[:3, 3]
+    z = pc_[:, 2]
+    front = z > 1e-6
+    u = np.round(fx * pc_[:, 0] / np.maximum(z, 1e-9) + cx).astype(int)
+    v = np.round(fy * pc_[:, 1] / np.maximum(z, 1e-9) + cy).astype(int)
+    ok = front & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    depth = np.full(h * w, np.inf)
+    np.minimum.at(depth, v[ok] * w + u[ok], z[ok])
+    depth[~np.isfinite(depth)] = 0.0
+    return depth.reshape(h, w).astype(np.float32)
 
 
 # The UWA dataset's model diameters (analyze_mian.py:42-47), as
