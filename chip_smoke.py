@@ -67,7 +67,25 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               package's TPU and CPU figures; the recognitions' tally
               kernel held on their own keys; each stage's peak memory and
               one traced tracked frame's busy share
- 16. times    medians over repetitions, each ended by a synchronize, each
+ 16. sharded  parallel/sharded_match.py: tests/test_sharding.py's
+              bench-scale configuration (bench model, seed-0 scan, voxel
+              capacity 8192, engine fast, caps from size_sharded_caps)
+              through 8 in-process shards, vote total = single-chip match,
+              no overflow, an instance localized; UWA-analog para (over
+              the block budgets) through 4 shards; the correlation
+              engine's retry from runs_cap 1,024 to an untruncated tally;
+              one NCCL rank (world size 1) equal to one in-process shard;
+              K1 and K2 held on every shard's own keys and caps; stage
+              times beside the single-chip pipeline
+ 17. eval-tools  tools/eval_instances_torch.py --quick (recall and
+              precision 1.0), tools/eval_recognition_torch.py --quick
+              (no overflow, fast and reference bits equal, every engine's
+              bits those the JAX tool prints on the CPU, K1 held on each
+              scene), tools/ppf_timer_torch.py at n = 256,
+              tools/voxel_grid_torch.py on a PLY of the bench scan,
+              tools/raycast_gap_study_torch.py at its defaults beside the
+              JAX study's line
+ 18. times    medians over repetitions, each ended by a synchronize, each
               kernel's device time from torch.profiler, both kernels at
               every cluster size (blocks per reference row), and the new
               paths' stages
@@ -144,6 +162,25 @@ TSDF_JAX_REF = {
 }
 TSDF_HELD_FRAMES = 23
 TSDF_DRIFT_BOUND = {"rot_deg": 6.24, "trans": 0.134}
+# The match bits of tools/eval_recognition.py --quick, the whole grid, run
+# by the JAX package on the CPU (XLA:CPU, 5,095 s), per "noise,occlusion"
+# cell and engine, one bit per seed. Every row is held.
+EVAL_BITS_HELD = ("fast", "reference", "correlation", "fast+rescore",
+                  "fast+smooth", "fast+smooth1", "fast+icp",
+                  "fast+smooth+icp", "fast+smooth1+icp", "agree_fast_corr")
+JAX_CPU_EVAL_BITS = {
+    cell: dict(zip(EVAL_BITS_HELD, rows)) for cell, rows in {
+        "0.0,0.0": [[1, 1, 1, 1]] * 10,
+        "0.0,0.3": [[0, 1, 1, 0], [0, 1, 1, 0], [0, 1, 1, 1], [0, 1, 1, 0],
+                    [0, 1, 0, 1], [1, 0, 1, 1], [1, 1, 1, 0], [1, 1, 1, 1],
+                    [1, 1, 1, 1], [1, 0, 1, 0]],
+        "0.5,0.0": [[0, 1, 0, 1], [0, 1, 0, 1], [0, 1, 0, 0], [1, 1, 0, 1],
+                    [0, 1, 0, 0], [0, 1, 0, 1], [0, 1, 0, 1], [0, 1, 0, 0],
+                    [0, 1, 0, 1], [0, 1, 0, 0]],
+        "0.5,0.3": [[0, 0, 0, 1], [0, 0, 0, 1], [0, 0, 0, 1], [0, 0, 0, 1],
+                    [0, 0, 0, 0], [0, 0, 0, 0], [0, 0, 0, 1], [0, 0, 0, 0],
+                    [0, 0, 0, 0], [1, 0, 1, 1]],
+    }.items()}
 # Card normals against the same function on the CPU: at most this share of
 # the points may differ by more than this angle (segment sums in another
 # order move near-degenerate cells).
@@ -1428,6 +1465,368 @@ def tsdf_phase(dev, workdir):
     return numbers, launches
 
 
+@contextlib.contextmanager
+def recorded_votes():
+    """Wraps drost._cast_votes for the block: every vote pass of the
+    sharded matcher (one per shard) is recorded with its own keys, α_s and
+    caps, as the shard passed them."""
+    from objective_slam_tpu_torch.models import drost
+
+    records = []
+    plain = drost._cast_votes
+
+    def cast(model, config, keys, alpha_s, vote_cap, seg_cap=None,
+             runs_cap=None):
+        records.append(dict(desc=model, cfg=config, keys=keys, alpha=alpha_s,
+                            vote_cap=vote_cap, seg_cap=seg_cap))
+        return plain(model, config, keys, alpha_s, vote_cap, seg_cap,
+                     runs_cap)
+
+    drost._cast_votes = cast
+    try:
+        yield records
+    finally:
+        drost._cast_votes = plain
+
+
+def launch_counts(fn):
+    """(fn(), {kernel: launches}) with the counts set to 0 just before the
+    call and read just after it."""
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally
+
+    block_tally.launches = fast_tally.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"block_tally": block_tally.launches,
+                 "fast_tally": fast_tally.launches}
+
+
+def hold_shards(records, label):
+    """hold_kernel on each recorded shard's own keys and caps; returns the
+    kernels held."""
+    return [hold_kernel(r["desc"], r["keys"], r["alpha"], r["cfg"].n_angle,
+                        r["vote_cap"], r["seg_cap"],
+                        f"{label} shard{i}/{len(records)}")[0]
+            for i, r in enumerate(records)]
+
+
+def sharded_phase(dev, st, corr_st, para, uwa_fileset):
+    """Phase 16: the sharded matcher (parallel/sharded_match.py) on the
+    card. (a) tests/test_sharding.py::test_sharded_bench_scale's
+    configuration through 8 in-process shards; (b) UWA-analog scene 1's
+    para (over the block budgets) through 4; (c) the correlation engine's
+    retry from runs_cap 1,024; (d) a torch.distributed NCCL group of world
+    size 1 against the in-process one-shard run. K1 and K2 are held on
+    each shard's own keys and caps. Returns the numbers and the launches
+    of each path."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    import objective_slam_tpu_torch as pt
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.ops import transforms as tr
+    from objective_slam_tpu_torch.parallel import sharded_match as tsm
+    from objective_slam_tpu_torch.utils import pointcloud as pc, \
+        profiling, synthetic, validation
+
+    out, launches = {}, {}
+    desc = st["desc"]
+    # (a) bench.py's model and seed-0 scan drawn from one generator, as
+    # the JAX test builds them, at voxel capacity 8192.
+    rng = np.random.default_rng(SEED)
+    mp_raw, mn_raw = synthetic.blob_cloud(rng, 20_000)
+    sp, sn, truths = synthetic.bin_picking_scene(rng, mp_raw, mn_raw)
+    cfg = pt.PPFConfig(max_poses=512, ref_point_df=5, engine="fast")
+    d_dist = cfg.tau_d * pc.bbox_diameter(mp_raw)
+    check(abs(d_dist - desc.d_dist) < 1e-6 * d_dist, "the bench model")
+    vox = pc.voxel_downsample(torch_from(sp, dev), torch_from(sn, dev),
+                              d_dist, capacity=8192)
+    check(not bool(vox.dropped), "sharded: voxel capacity 8192 holds")
+    pts, nrm, n = vox.points, vox.normals, vox.points.shape[0]
+    single = pt.match(desc, pts, nrm, cfg)
+    votes = int(single.num_votes)
+    check(votes > 30_000_000, f"sharded: bench scale ({votes} votes)")
+    vc, sc = tsm.size_sharded_caps(desc, pts, nrm, cfg, 8)
+    group8 = tsm.LocalShards(8)
+    matcher = tsm.make_sharded_matcher(group8, desc, cfg, n, vc, sc)
+    with recorded_votes() as rec:
+        multi, launches["sharded-bench"] = launch_counts(
+            lambda: matcher(pts, nrm))
+    check(int(multi.num_votes) == votes,
+          f"sharded: {int(multi.num_votes)} votes = single-chip {votes}")
+    check(not bool(multi.overflowed), "sharded: no overflow")
+    v = min((validation.validate_pose(multi.pose.cpu(), T, desc.diameter,
+                                      cfg) for T in truths),
+            key=lambda r: r.rot_err)
+    check(v.match, f"sharded: the pose localizes an instance ({v})")
+    check(len(rec) == 8 and launches["sharded-bench"]["block_tally"] == 8,
+          f"sharded: K1 once per shard ({launches['sharded-bench']})")
+    check(set(hold_shards(rec, "sharded-bench")) == {"block_tally"},
+          "sharded: K1 held on every shard")
+    del rec
+    # Stage times, warm: per shard, the gather and the global phase, and
+    # the whole call beside the single-chip pipeline at its own sized caps.
+    caps = drost._match_sized_caps(desc, pts, nrm, cfg)[1]
+
+    def single_call():
+        return drost._match_core(desc, pts, nrm, ref_point_df=cfg.ref_point_df,
+                                 vote_cap=caps.vote_cap, config=cfg,
+                                 seg_cap=caps.seg_cap).pose
+
+    timings = profiling.Timings()
+    for _ in range(3):
+        matcher(pts, nrm, timings=timings)
+    summary = timings.summary()
+    single_call()
+    out["bench"] = {
+        "shards": 8, "scene_voxels": n, "reference_rows": len(range(0, n, 5)),
+        "num_votes": votes, "vote_cap_per_shard": vc, "seg_cap_per_shard": sc,
+        "candidates": int(multi.pose_votes.shape[0]),
+        "survivors": int(multi.pose_keep.sum()),
+        "topk_saturated": bool(multi.topk_saturated),
+        "trans_err": v.trans_err, "rot_err_deg": math.degrees(v.rot_err),
+        "shard_local_ms": summary["shard local"]["p50_ms"],
+        "shard_local_ms_max": summary["shard local"]["max_ms"],
+        "gather_ms": summary["gather"]["p50_ms"],
+        "global_ms": summary["global"]["p50_ms"],
+        "call_ms": statistics.median(host_ms(lambda: matcher(pts, nrm), 5)),
+        "single_chip_ms": statistics.median(host_ms(single_call, 5)),
+        "single_chip_caps": list(caps)}
+
+    # (b) para, over the block budgets: the fallback engine and K2 per
+    # shard.
+    p_desc, p_cfg, psp, psn = para["desc"], para["cfg"], para["sp"], \
+        para["sn"]
+    check(p_desc.fast_tables.block is None, "para has no block tables")
+    p_vc, p_sc = tsm.size_sharded_caps(p_desc, psp, psn, p_cfg, 4)
+    with recorded_votes() as rec:
+        res_b, launches["sharded-para"] = launch_counts(
+            lambda: tsm.make_sharded_matcher(
+                tsm.LocalShards(4), p_desc, p_cfg, psp.shape[0], p_vc,
+                p_sc)(psp, psn))
+    p_votes = int(para["res"].num_votes)
+    check(int(res_b.num_votes) == p_votes,
+          f"sharded para: {int(res_b.num_votes)} votes = single-chip "
+          f"{p_votes}")
+    check(not bool(res_b.overflowed), "sharded para: no overflow")
+    check(launches["sharded-para"]["fast_tally"] == 4,
+          f"sharded para: K2 once per shard ({launches['sharded-para']})")
+    check(set(hold_shards(rec, "sharded-para")) == {"fast_tally"},
+          "sharded para: K2 held on every shard")
+    del rec
+    truths_u, diams_u = uwa_fileset[2], uwa_fileset[3]
+    vb = validation.validate_pose(res_b.pose.cpu(), truths_u["para"][0],
+                                  diams_u["para"], p_cfg)
+    dt_, dr_ = tr.ht_dist(res_b.pose, para["res"].pose)
+    out["para"] = {"shards": 4, "num_votes": p_votes,
+                   "vote_cap_per_shard": p_vc,
+                   "topk_saturated": bool(res_b.topk_saturated),
+                   "bit": int(vb.match),
+                   "pose_vs_single_chip": [float(dt_), float(dr_)]}
+
+    # (c) the correlation engine from a starved runs_cap.
+    c_desc = corr_st["desc"]
+    c_cfg = dataclasses.replace(corr_st["cfg"], refine_icp=False)
+    starved = tsm.make_sharded_matcher(group8, c_desc, c_cfg, n, 0,
+                                       runs_cap_per_shard=1024)(pts, nrm)
+    check(bool(starved.overflowed), "sharded corr: runs_cap 1024 overflows")
+    t0 = time.perf_counter()
+    res_c, launches["sharded-corr"] = launch_counts(
+        lambda: tsm.sharded_match(group8, c_desc, pts, nrm, c_cfg,
+                                  runs_cap_per_shard=1024))
+    retry_ms = (time.perf_counter() - t0) * 1e3
+    single_c = pt.match(c_desc, pts, nrm, c_cfg)
+    check(not bool(res_c.overflowed), "sharded corr: the retry ends clear")
+    check(int(res_c.num_votes) == int(single_c.num_votes) == votes,
+          f"sharded corr: {int(res_c.num_votes)} votes = single-chip "
+          f"{int(single_c.num_votes)}")
+    out["corr"] = {"shards": 8, "num_votes": int(res_c.num_votes),
+                   "retry_ms": retry_ms}
+
+    # (d) one rank of NCCL on the card against one in-process shard.
+    vc1, sc1 = tsm.size_sharded_caps(desc, pts, nrm, cfg, 1)
+    store = ROOT / "build" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        with recorded_votes() as rec:
+            res_d, launches["sharded-nccl"] = launch_counts(
+                lambda: tsm.make_sharded_matcher(
+                    tsm.DistShards(device=dev), desc, cfg, n, vc1,
+                    sc1)(pts, nrm))
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    check(set(hold_shards(rec, "sharded-nccl")) == {"block_tally"},
+          "sharded nccl: K1 held")
+    del rec
+    res_l = tsm.make_sharded_matcher(tsm.LocalShards(1), desc, cfg, n, vc1,
+                                     sc1)(pts, nrm)
+    worst = 0.0
+    for name, a in res_d._asdict().items():
+        b = getattr(res_l, name)
+        if a.dtype.is_floating_point:
+            worst = max(worst, float((a - b).abs().max()))
+            check(torch.allclose(a, b, rtol=0, atol=1e-5),
+                  f"sharded nccl: {name} within 1e-5 of the in-process run")
+        else:
+            check(torch.equal(a, b),
+                  f"sharded nccl: {name} equals the in-process run")
+    out["nccl_world1"] = {"equal_integer_fields": True,
+                          "max_abs_float_diff": worst}
+    return out, launches
+
+
+def eval_tools_phase(dev, workdir):
+    """Phase 17: the evaluation tools on the card. eval_instances_torch
+    --quick (recall and precision 1.0 on both seeds); eval_recognition_torch
+    --quick (fast and reference bits equal per scene, no overflow, the bits
+    the JAX tool prints on the CPU); ppf_timer_torch at n = 256;
+    voxel_grid_torch on a PLY of the bench scan; raycast_gap_study_torch at
+    its defaults beside the JAX study's line. The tally kernel of every
+    eval_instances match and of each scene's `fast` match is held on its
+    own keys. Returns the numbers and the launches of each tool."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import eval_instances_torch
+    import eval_recognition_torch
+    import ppf_timer_torch
+    import raycast_gap_study_torch
+    import voxel_grid_torch
+    from objective_slam_tpu_torch.models import drost
+    from objective_slam_tpu_torch.utils import pointcloud as pc, ply, \
+        synthetic
+
+    out, launches = {}, {}
+    workdir.mkdir(parents=True, exist_ok=True)
+    quiet = io.StringIO()
+
+    # eval_instances --quick, each match recorded.
+    records = []
+    plain_match = drost.match
+
+    def counted_match(model, sp, sn, config, *a, **k):
+        records.append(dict(desc=model, sp=sp, sn=sn, cfg=config))
+        return plain_match(model, sp, sn, config, *a, **k)
+
+    drost.match = counted_match
+    t0 = time.perf_counter()
+    try:
+        inst, launches["eval-instances"] = launch_counts(
+            lambda: eval_instances_torch.run(
+                eval_instances_torch.parse_args(["--quick"]), dev,
+                log=quiet))
+    finally:
+        drost.match = plain_match
+    inst_ms = (time.perf_counter() - t0) * 1e3
+    rows = inst["rows"]
+    check(len(rows) == 2 and all(r["recall"] == 1.0 and r["precision"] == 1.0
+                                 and not r["overflowed"] for r in rows),
+          f"eval_instances --quick: recall and precision 1.0 ({rows})")
+    check(len(records) == len(rows), "eval_instances: one match per scene")
+    for i, r in enumerate(records):
+        hold_scene(r["desc"], r["sp"], r["sn"], r["cfg"],
+                   f"eval-instances seed{i}")
+    out["eval_instances"] = dict(inst, ms=inst_ms)
+    del records
+
+    # eval_recognition --quick, each match's engine and pose recorded.
+    records = []
+    plain_core = drost._match_core
+
+    def counted_core(model, sp, sn, **k):
+        res = plain_core(model, sp, sn, **k)
+        records.append(dict(desc=model, sp=sp, sn=sn, cfg=k["config"],
+                            vote_cap=k["vote_cap"], pose=res.pose))
+        return res
+
+    drost._match_core = counted_core
+    t0 = time.perf_counter()
+    try:
+        (rec, engines, noises, occs), launches["eval-recognition"] = \
+            launch_counts(lambda: eval_recognition_torch.run(
+                eval_recognition_torch.parse_args(["--quick"]), dev,
+                log=quiet))
+    finally:
+        drost._match_core = plain_core
+    rec_ms = (time.perf_counter() - t0) * 1e3
+    results = rec["results"]
+    check(not any(r["overflowed"] for r in results),
+          "eval_recognition --quick: no cap overflow")
+    check(engines + ["agree_fast_corr"] == list(EVAL_BITS_HELD),
+          "eval_recognition --quick: every engine of the JAX tool")
+    bits = {}
+    for r in results:
+        bits.setdefault(f"{r['noise']},{r['occ']}", {}).setdefault(
+            r["engine"], []).append(int(r["match"]))
+    for cell, by_engine in bits.items():
+        check(by_engine["fast"] == by_engine["reference"],
+              f"eval_recognition {cell}: fast and reference bits equal "
+              f"({by_engine['fast']} / {by_engine['reference']})")
+        for engine in EVAL_BITS_HELD:
+            want = JAX_CPU_EVAL_BITS[cell][engine]
+            check(by_engine[engine] == want,
+                  f"eval_recognition {cell} {engine}: bits "
+                  f"{by_engine[engine]}, the JAX tool prints {want}")
+    n_eng = len(engines)
+    check(len(records) == n_eng * len(noises) * len(occs) * rec["seeds"],
+          "eval_recognition: one match per engine and scene")
+    scenes = [records[i:i + n_eng] for i in range(0, len(records), n_eng)]
+    same = sum(torch.equal(sc[engines.index("fast")]["pose"],
+                           sc[engines.index("reference")]["pose"])
+               for sc in scenes)
+    for i, sc in enumerate(scenes):
+        r = sc[engines.index("fast")]
+        hold_scene(r["desc"], r["sp"], r["sn"], r["cfg"],
+                   f"eval-recognition scene{i} fast",
+                   caps=drost.MatchCaps(r["vote_cap"], None, None,
+                                        r["cfg"].max_poses))
+    out["eval_recognition"] = {
+        "bits": bits, "jax_cpu_bits": JAX_CPU_EVAL_BITS,
+        "bits_held": EVAL_BITS_HELD,
+        "fast_reference_identical_winners": [same, len(scenes)],
+        "table": eval_recognition_torch.table(results, engines, noises,
+                                              occs),
+        "ms": rec_ms}
+    del records, scenes
+
+    # ppf_timer at n = 256.
+    n = 256
+    ms = ppf_timer_torch.time_ppf(*ppf_timer_torch.fixtures(n), dev)
+    out["ppf_timer"] = {"n": n, "ms": ms, "m_ppf_per_s": n * n / ms / 1e3}
+
+    # voxel_grid on a PLY of the bench scan.
+    sp, sn, _ = synthetic.bin_picking_scene(
+        np.random.default_rng(SEED), *synthetic.blob_cloud(
+            np.random.default_rng(SEED), 20_000))
+    src, dst = workdir / "bench_scan.ply", workdir / "bench_scan_vox.ply"
+    ply.write_ply(src, sp, sn)
+    with contextlib.redirect_stdout(quiet):
+        check(voxel_grid_torch.main([str(src), str(dst), "--leaf", "0.05"])
+              == 0, "voxel_grid exit code")
+    got = ply.read_ply(dst)
+    want = pc.voxel_downsample_np(ply.read_ply(src).points,
+                                  ply.read_ply(src).normals, 0.05)
+    check(np.array_equal(got.points, want[0])
+          and np.array_equal(got.normals, want[1]),
+          "voxel_grid writes voxel_downsample_np's cloud")
+    out["voxel_grid"] = {"points_in": len(sp), "points_out": len(got.points)}
+
+    # raycast_gap_study at its defaults.
+    (gap, _, _), launches["raycast-gap"] = launch_counts(
+        lambda: raycast_gap_study_torch.run(
+            raycast_gap_study_torch.parse_args([]), dev, log=quiet))
+    check(gap["dense_hits"] > 0 and gap["missed_by_cf"] == (
+        gap["missed_within_1px_of_silhouette"] + gap["missed_interior"]),
+        f"raycast gap study line ({gap})")
+    jax_gap = json.loads((ROOT / "docs" / "eval" /
+                          "raycast_gap_256.json").read_text())
+    out["raycast_gap"] = {"port": gap, "jax_reference": jax_gap}
+    return out, launches
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1592,6 +1991,16 @@ def main() -> int:
     with Phase("tsdf"):
         tsdf_numbers, launches_tsdf = tsdf_phase(dev, ROOT / "build" / "tsdf")
         print(f"tsdf on {card}: " + json.dumps(tsdf_numbers))
+
+    with Phase("sharded"):
+        sharded_numbers, launches_sharded = sharded_phase(
+            dev, st, corr_st, para, uwa_fileset)
+        print(f"sharded on {card}: " + json.dumps(sharded_numbers))
+
+    with Phase("eval-tools"):
+        eval_numbers, launches_eval = eval_tools_phase(
+            dev, ROOT / "build" / "eval_tools")
+        print(f"eval-tools on {card}: " + json.dumps(eval_numbers))
 
     with Phase("times"):
         cap, seg_cap = st["cap"], st["seg_cap"]
@@ -1817,6 +2226,8 @@ def main() -> int:
         paths["bench"] = launches_bench
         paths.update({f"uwa-sweep-{k}": l for k, l in launches_sweep.items()})
         paths["tsdf"] = launches_tsdf
+        paths.update(launches_sharded)
+        paths.update(launches_eval)
         return {name: l[kernel] for name, l in paths.items()}
 
     # Every comparison of a kernel with its plain version on a driven

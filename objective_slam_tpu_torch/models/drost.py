@@ -177,29 +177,8 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
     s_ref_pts = scene_points[ref_idx]
     s_beta, s_gamma = tr.canonical_angles(s_ref_pts, scene_normals[ref_idx])
 
-    # Missing engine tables raise instead of giving an empty accumulator.
-    if config.engine == "correlation":
-        if model.corr_tables is None:
-            raise ValueError("engine='correlation' but model.corr_tables is "
-                             "None — rebuild tables for this engine")
-        votes = voting_corr.cast_votes_corr(keys, alpha_s, model.corr_tables,
-                                            model.n_points, runs_cap=runs_cap)
-    elif config.engine == "fast":
-        if model.fast_tables is None:
-            raise ValueError("engine='fast' but model.fast_tables is None — "
-                             "rebuild tables for this engine")
-        if model.fast_tables.block is not None:
-            votes = voting_block.cast_votes_block(
-                keys, alpha_s, model.fast_tables.block, model.n_points,
-                config.d_angle, vote_cap, seg_cap=seg_cap)
-        else:
-            # Over the block budgets: the fallback engine (drost.py:228-231).
-            votes = voting_fast.cast_votes_fast(
-                keys, alpha_s, model.fast_tables, model.n_points,
-                config.d_angle, vote_cap)
-    else:
-        votes = voting.cast_votes(keys, alpha_s, model.table, model.n_points,
-                                  config.d_angle, vote_cap)
+    votes = _cast_votes(model, config, keys, alpha_s, vote_cap, seg_cap,
+                        runs_cap)
     top = voting.top_votes(votes.accumulator, config.vote_count_threshold,
                            config.max_poses)
 
@@ -210,9 +189,55 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
         model.gamma[m_idx], s_ref_pts[r_idx], s_beta[r_idx], s_gamma[r_idx],
         config.d_angle)
     weighted = top.counts.to(torch.float32) * model.vote_weights[m_idx]
+    pose, win, cl = _pick_winner(model, config, poses, weighted, top.keep,
+                                 scene_points, scene_normals, icp_points,
+                                 icp_normals)
+    return MatchResult(
+        pose=pose, cluster_votes=cl.vote_counts[win],
+        num_votes=votes.num_votes, overflowed=votes.overflowed,
+        poses=poses, pose_votes=top.counts, pose_keep=top.keep,
+        clustered_counts=cl.vote_counts,
+        clustered_translations=cl.translations,
+        accumulator=votes.accumulator, topk_saturated=top.saturated)
 
+
+def _cast_votes(model: ModelDescription, config: PPFConfig, keys, alpha_s,
+                vote_cap: int, seg_cap: int | None = None,
+                runs_cap: int | None = None) -> voting.VoteResult:
+    """The configured engine's vote pass over scene keys (drost.py:208-234);
+    a missing engine table raises instead of giving an empty
+    accumulator."""
+    if config.engine == "correlation":
+        if model.corr_tables is None:
+            raise ValueError("engine='correlation' but model.corr_tables is "
+                             "None — rebuild tables for this engine")
+        return voting_corr.cast_votes_corr(keys, alpha_s, model.corr_tables,
+                                           model.n_points, runs_cap=runs_cap)
+    if config.engine == "fast":
+        if model.fast_tables is None:
+            raise ValueError("engine='fast' but model.fast_tables is None — "
+                             "rebuild tables for this engine")
+        if model.fast_tables.block is not None:
+            return voting_block.cast_votes_block(
+                keys, alpha_s, model.fast_tables.block, model.n_points,
+                config.d_angle, vote_cap, seg_cap=seg_cap)
+        # Over the block budgets: the fallback engine (drost.py:228-231).
+        return voting_fast.cast_votes_fast(
+            keys, alpha_s, model.fast_tables, model.n_points,
+            config.d_angle, vote_cap)
+    return voting.cast_votes(keys, alpha_s, model.table, model.n_points,
+                             config.d_angle, vote_cap)
+
+
+def _pick_winner(model: ModelDescription, config: PPFConfig, poses, weighted,
+                 keep, scene_points, scene_normals, icp_points=None,
+                 icp_normals=None):
+    """Dense clustering of the candidate poses, optional rescoring, the
+    winner and its optional ICP refinement (drost.py:254-301); the sharded
+    matcher's global phase runs the same. Returns (pose, winner index,
+    clusters)."""
     cl = clustering.cluster_poses_dense(
-        poses[:, :3, 3], tr.hrotmat2quat(poses), weighted, top.keep,
+        poses[:, :3, 3], tr.hrotmat2quat(poses), weighted, keep,
         model.d_dist, config.rot_thresh,
         include_center_cell=config.cluster_center_cell,
         use_l1_norm=config.use_l1_norm,
@@ -226,9 +251,9 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
         cand = poses.clone()
         cand[:, :3, 3] = cl.translations
         scores = verify_pose.inlier_scores(
-            cand, top.keep & near, model.points, scene_points, model.d_dist,
+            cand, keep & near, model.points, scene_points, model.d_dist,
             model_normals=model.normals, scene_normals=scene_normals)
-        combined = torch.where(top.keep & near,
+        combined = torch.where(keep & near,
                                cl.vote_counts * (1.0 + scores), -1.0)
         win = torch.argmax(combined)
         pose = cand[win]
@@ -252,31 +277,37 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
             max_dist=config.icp_max_dist_factor * model.d_dist,
             scene_normals=icp_nrm, model_normals=model.normals,
             point_to_plane=config.icp_point_to_plane).pose
-
-    return MatchResult(
-        pose=pose, cluster_votes=cl.vote_counts[win],
-        num_votes=votes.num_votes, overflowed=votes.overflowed,
-        poses=poses, pose_votes=top.counts, pose_keep=top.keep,
-        clustered_counts=cl.vote_counts,
-        clustered_translations=cl.translations,
-        accumulator=votes.accumulator, topk_saturated=top.saturated)
+    return pose, win, cl
 
 
-def _count_votes(model, scene_points, scene_normals, ref_point_df,
-                 d_angle) -> tuple[int, int, int]:
-    """Exact (total votes, block-engine vote rows, nonzero scene-pair
-    segments) — the count pass that sizes the buffers (drost.py:326-370);
-    int32 sums as in the JAX package."""
+def _count_votes_rows(model, scene_points, scene_normals, ref_point_df,
+                      d_angle):
+    """Exact per-reference-row counts (drost.py:326-348): three (R,) int32
+    tensors, the votes, the block engine's vote rows and the nonzero
+    scene-pair segments of each row. A row sum is bounded by n_s times the
+    largest bucket, so int32 holds it; grand totals are summed by the
+    caller."""
     pts, nrm, ref_idx = _scene_inputs(model, scene_points, scene_normals,
                                       ref_point_df)
     keys, _ = _scene_keys(model, pts, nrm, ref_idx, d_angle)
     valid = keys != ppf_ops.INVALID_KEY
     safe = torch.where(valid, keys, 0).to(torch.int64)
     cnt = torch.where(valid, model.table.counts[safe], 0)
-    totals = torch.stack([
-        torch.sum(cnt, dtype=torch.int32),
-        torch.sum(voting_block.rows_for_counts(cnt), dtype=torch.int32),
-        torch.sum(cnt > 0, dtype=torch.int32)]).tolist()
+    return (torch.sum(cnt, dim=1, dtype=torch.int32),
+            torch.sum(voting_block.rows_for_counts(cnt), dim=1,
+                      dtype=torch.int32),
+            torch.sum(cnt > 0, dim=1, dtype=torch.int32))
+
+
+def _count_votes(model, scene_points, scene_normals, ref_point_df,
+                 d_angle) -> tuple[int, int, int]:
+    """Exact (total votes, block-engine vote rows, nonzero scene-pair
+    segments) — the count pass that sizes the buffers (drost.py:351-370);
+    int32 sums of the per-row counts, as in the JAX package."""
+    rows = _count_votes_rows(model, scene_points, scene_normals,
+                             ref_point_df, d_angle)
+    totals = torch.stack([torch.sum(r, dtype=torch.int32)
+                          for r in rows]).tolist()
     return int(totals[0]), int(totals[1]), int(totals[2])
 
 

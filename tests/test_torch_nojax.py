@@ -1,7 +1,7 @@
 """The port must run where JAX is absent (the GPU machine has none):
 importing it loads neither jax nor the JAX package, and no module of it,
-chip_smoke.py, bench_torch.py, tools/run_uwa_analog_torch.py or
-tools/tsdf_smoke_torch.py names either (or bench.py) in an import."""
+chip_smoke.py, bench_torch.py or its tools (tools/*_torch.py) names either
+(or bench.py) in an import."""
 
 import ast
 import pathlib
@@ -40,11 +40,14 @@ def test_import_leaves_jax_unloaded():
         "pointcloud, profiling\n"
         "from objective_slam_tpu_torch import io_native\n"
         "from objective_slam_tpu_torch.models import tsdf\n"
+        "from objective_slam_tpu_torch.parallel import sharded_match\n"
         "import chip_smoke\n"
         "import bench_torch\n"
         "sys.path.insert(0, 'tools')\n"
         "import run_uwa_analog_torch\n"
         "import tsdf_smoke_torch\n"
+        "import eval_instances_torch, eval_recognition_torch, "
+        "ppf_timer_torch, raycast_gap_study_torch, voxel_grid_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -55,9 +58,8 @@ def test_import_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
-                          ROOT / "tools" / "run_uwa_analog_torch.py",
-                          ROOT / "tools" / "tsdf_smoke_torch.py"],
+                         [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] +
+                         sorted((ROOT / "tools").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
