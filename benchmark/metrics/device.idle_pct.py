@@ -1,0 +1,11 @@
+"""device.idle_pct: share of the traced window, in %, in which no
+operation ran on the device (the union of the profiler's device
+intervals), on the H100."""
+
+UNIT = "%"
+
+
+def read(run):
+    if run.trace is None or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
