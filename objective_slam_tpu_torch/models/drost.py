@@ -17,6 +17,12 @@ fallback engine ``voting_fast.cast_votes_fast`` (tally: kernel K2).
 FNV-bucket rank (``hashing``); ``rescore_poses`` re-ranks near-tied Hough
 peaks by their inlier score (``verify_pose``). Everything runs eagerly on
 the device of the model description; numpy inputs are moved there.
+
+Stages are ``profiling.span``s, recorded while a torch profiler runs:
+``drost.match`` (the public entry), ``drost.count`` (the count pass),
+``drost.core`` (one match at fixed capacities) with ``drost.keys``,
+``drost.vote``, ``drost.topk`` and ``drost.cluster`` inside, and
+``drost.sync`` around each host read of a device value.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from objective_slam_tpu_torch.ops import (clustering, hashing, icp,
                                           ppf as ppf_ops, transforms as tr,
                                           verify_pose, voting, voting_block,
                                           voting_corr, voting_fast)
+from objective_slam_tpu_torch.utils.profiling import span
 
 _ENGINES = ("fast", "reference", "correlation")
 
@@ -169,36 +176,41 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
                 seg_cap: int | None = None,
                 runs_cap: int | None = None) -> MatchResult:
     """The matching pipeline at fixed capacities (drost.py:180-310)."""
-    _check_config(config)
-    scene_points, scene_normals, ref_idx = _scene_inputs(
-        model, scene_points, scene_normals, ref_point_df)
-    keys, alpha_s = _scene_keys(model, scene_points, scene_normals, ref_idx,
-                                config.d_angle)
-    s_ref_pts = scene_points[ref_idx]
-    s_beta, s_gamma = tr.canonical_angles(s_ref_pts, scene_normals[ref_idx])
+    with span("drost.core"):
+        _check_config(config)
+        with span("drost.keys"):
+            scene_points, scene_normals, ref_idx = _scene_inputs(
+                model, scene_points, scene_normals, ref_point_df)
+            keys, alpha_s = _scene_keys(model, scene_points, scene_normals,
+                                        ref_idx, config.d_angle)
+            s_ref_pts = scene_points[ref_idx]
+            s_beta, s_gamma = tr.canonical_angles(s_ref_pts,
+                                                  scene_normals[ref_idx])
 
-    votes = _cast_votes(model, config, keys, alpha_s, vote_cap, seg_cap,
-                        runs_cap)
-    top = voting.top_votes(votes.accumulator, config.vote_count_threshold,
-                           config.max_poses)
-
-    m_idx = top.model_idx.to(torch.int64)
-    r_idx = top.ref_idx.to(torch.int64)
-    poses = tr.pose_from_vote(
-        top.alpha_idx, model.points[m_idx], model.beta[m_idx],
-        model.gamma[m_idx], s_ref_pts[r_idx], s_beta[r_idx], s_gamma[r_idx],
-        config.d_angle)
-    weighted = top.counts.to(torch.float32) * model.vote_weights[m_idx]
-    pose, win, cl = _pick_winner(model, config, poses, weighted, top.keep,
-                                 scene_points, scene_normals, icp_points,
-                                 icp_normals)
-    return MatchResult(
-        pose=pose, cluster_votes=cl.vote_counts[win],
-        num_votes=votes.num_votes, overflowed=votes.overflowed,
-        poses=poses, pose_votes=top.counts, pose_keep=top.keep,
-        clustered_counts=cl.vote_counts,
-        clustered_translations=cl.translations,
-        accumulator=votes.accumulator, topk_saturated=top.saturated)
+        with span("drost.vote"):
+            votes = _cast_votes(model, config, keys, alpha_s, vote_cap,
+                                seg_cap, runs_cap)
+        with span("drost.topk"):
+            top = voting.top_votes(votes.accumulator,
+                                   config.vote_count_threshold,
+                                   config.max_poses)
+            m_idx = top.model_idx.to(torch.int64)
+            r_idx = top.ref_idx.to(torch.int64)
+            poses = tr.pose_from_vote(
+                top.alpha_idx, model.points[m_idx], model.beta[m_idx],
+                model.gamma[m_idx], s_ref_pts[r_idx], s_beta[r_idx],
+                s_gamma[r_idx], config.d_angle)
+            weighted = top.counts.to(torch.float32) * model.vote_weights[m_idx]
+        pose, win, cl = _pick_winner(model, config, poses, weighted, top.keep,
+                                     scene_points, scene_normals, icp_points,
+                                     icp_normals)
+        return MatchResult(
+            pose=pose, cluster_votes=cl.vote_counts[win],
+            num_votes=votes.num_votes, overflowed=votes.overflowed,
+            poses=poses, pose_votes=top.counts, pose_keep=top.keep,
+            clustered_counts=cl.vote_counts,
+            clustered_translations=cl.translations,
+            accumulator=votes.accumulator, topk_saturated=top.saturated)
 
 
 def _cast_votes(model: ModelDescription, config: PPFConfig, keys, alpha_s,
@@ -235,32 +247,34 @@ def _pick_winner(model: ModelDescription, config: PPFConfig, poses, weighted,
     """Dense clustering of the candidate poses, optional rescoring, the
     winner and its optional ICP refinement (drost.py:254-301); the sharded
     matcher's global phase runs the same. Returns (pose, winner index,
-    clusters)."""
-    cl = clustering.cluster_poses_dense(
-        poses[:, :3, 3], tr.hrotmat2quat(poses), weighted, keep,
-        model.d_dist, config.rot_thresh,
-        include_center_cell=config.cluster_center_cell,
-        use_l1_norm=config.use_l1_norm,
-        use_averaged_clusters=config.use_averaged_clusters)
-    if config.rescore_poses:
-        # Geometric verification of the near-tied Hough peaks only
-        # (drost.py:260-281): the vote count carries the occlusion-robust
-        # support, the inlier score breaks ties between aliased peaks.
-        near = cl.vote_counts >= (f32(config.rescore_min_vote_frac)
-                                  * torch.max(cl.vote_counts))
-        cand = poses.clone()
-        cand[:, :3, 3] = cl.translations
-        scores = verify_pose.inlier_scores(
-            cand, keep & near, model.points, scene_points, model.d_dist,
-            model_normals=model.normals, scene_normals=scene_normals)
-        combined = torch.where(keep & near,
-                               cl.vote_counts * (1.0 + scores), -1.0)
-        win = torch.argmax(combined)
-        pose = cand[win]
-    else:
-        win = torch.argmax(cl.vote_counts)
-        pose = poses[win].clone()
-        pose[:3, 3] = cl.translations[win]
+    clusters). The stages before ICP are the span ``drost.cluster``."""
+    with span("drost.cluster"):
+        cl = clustering.cluster_poses_dense(
+            poses[:, :3, 3], tr.hrotmat2quat(poses), weighted, keep,
+            model.d_dist, config.rot_thresh,
+            include_center_cell=config.cluster_center_cell,
+            use_l1_norm=config.use_l1_norm,
+            use_averaged_clusters=config.use_averaged_clusters)
+        if config.rescore_poses:
+            # Geometric verification of the near-tied Hough peaks only
+            # (drost.py:260-281): the vote count carries the
+            # occlusion-robust support, the inlier score breaks ties
+            # between aliased peaks.
+            near = cl.vote_counts >= (f32(config.rescore_min_vote_frac)
+                                      * torch.max(cl.vote_counts))
+            cand = poses.clone()
+            cand[:, :3, 3] = cl.translations
+            scores = verify_pose.inlier_scores(
+                cand, keep & near, model.points, scene_points, model.d_dist,
+                model_normals=model.normals, scene_normals=scene_normals)
+            combined = torch.where(keep & near,
+                                   cl.vote_counts * (1.0 + scores), -1.0)
+            win = torch.argmax(combined)
+            pose = cand[win]
+        else:
+            win = torch.argmax(cl.vote_counts)
+            pose = poses[win].clone()
+            pose[:3, 3] = cl.translations[win]
 
     if config.refine_icp:
         # Voxel-pad sentinel points sit ~1e7 away and never fall inside the
@@ -304,10 +318,13 @@ def _count_votes(model, scene_points, scene_normals, ref_point_df,
     """Exact (total votes, block-engine vote rows, nonzero scene-pair
     segments) — the count pass that sizes the buffers (drost.py:351-370);
     int32 sums of the per-row counts, as in the JAX package."""
-    rows = _count_votes_rows(model, scene_points, scene_normals,
-                             ref_point_df, d_angle)
-    totals = torch.stack([torch.sum(r, dtype=torch.int32)
-                          for r in rows]).tolist()
+    with span("drost.count"):
+        rows = _count_votes_rows(model, scene_points, scene_normals,
+                                 ref_point_df, d_angle)
+        totals = torch.stack([torch.sum(r, dtype=torch.int32)
+                              for r in rows])
+        with span("drost.sync"):
+            totals = totals.tolist()
     return int(totals[0]), int(totals[1]), int(totals[2])
 
 
@@ -343,9 +360,10 @@ def match(model: ModelDescription, scene_points, scene_normals,
     there, the flag comes back set (drost.py:400-419). runs_cap is the
     correlation engine's starting capacity (see _match_sized_caps); the
     other engines ignore it."""
-    return _match_loop(model, scene_points, scene_normals, config, vote_cap,
-                       icp_points, icp_normals, runs_cap,
-                       max_poses_ceiling)[0]
+    with span("drost.match"):
+        return _match_loop(model, scene_points, scene_normals, config,
+                           vote_cap, icp_points, icp_normals, runs_cap,
+                           max_poses_ceiling)[0]
 
 
 def _n_cells(model, scene_points, ref_point_df) -> int:
@@ -364,22 +382,25 @@ def match_with_state(model: ModelDescription, scene_points, scene_normals,
     saturation below the ceiling, it falls back to the sized path.
     Saturation that persists at the ceiling is terminal: the flagged
     result comes back with the same state."""
-    if state is not None:
-        cfg = dataclasses.replace(config, max_poses=state.max_poses)
-        res = _match_core(model, scene_points, scene_normals,
-                          ref_point_df=cfg.ref_point_df,
-                          vote_cap=state.vote_cap, config=cfg,
-                          icp_points=icp_points, icp_normals=icp_normals,
-                          seg_cap=state.seg_cap, runs_cap=state.runs_cap)
-        ovf, sat = torch.stack([res.overflowed, res.topk_saturated]).tolist()
-        if not ovf:
-            if not sat:
-                return res, state
-            cells = _n_cells(model, scene_points, cfg.ref_point_df)
-            if state.max_poses >= min(max_poses_ceiling, cells):
-                return res, state
-    return _match_loop(model, scene_points, scene_normals, config, None,
-                       icp_points, icp_normals, None, max_poses_ceiling)
+    with span("drost.match"):
+        if state is not None:
+            cfg = dataclasses.replace(config, max_poses=state.max_poses)
+            res = _match_core(model, scene_points, scene_normals,
+                              ref_point_df=cfg.ref_point_df,
+                              vote_cap=state.vote_cap, config=cfg,
+                              icp_points=icp_points, icp_normals=icp_normals,
+                              seg_cap=state.seg_cap, runs_cap=state.runs_cap)
+            with span("drost.sync"):
+                ovf, sat = torch.stack([res.overflowed,
+                                        res.topk_saturated]).tolist()
+            if not ovf:
+                if not sat:
+                    return res, state
+                cells = _n_cells(model, scene_points, cfg.ref_point_df)
+                if state.max_poses >= min(max_poses_ceiling, cells):
+                    return res, state
+        return _match_loop(model, scene_points, scene_normals, config, None,
+                           icp_points, icp_normals, None, max_poses_ceiling)
 
 
 def _match_loop(model, scene_points, scene_normals, config, vote_cap,
@@ -391,7 +412,9 @@ def _match_loop(model, scene_points, scene_normals, config, vote_cap,
         res, caps = _match_sized_caps(model, scene_points, scene_normals,
                                       cfg, vote_cap, icp_points, icp_normals,
                                       runs_cap)
-        if not bool(res.topk_saturated):
+        with span("drost.sync"):
+            saturated = bool(res.topk_saturated)
+        if not saturated:
             return res, caps
         cells = _n_cells(model, scene_points, cfg.ref_point_df)
         new_mp = min(2 * cfg.max_poses, max_poses_ceiling, cells)
@@ -430,7 +453,9 @@ def _match_sized_caps(model: ModelDescription, scene_points, scene_normals,
                               icp_normals=icp_normals, runs_cap=rc)
             if rc is not None and rc >= S:
                 break
-            if not bool(res.overflowed):
+            with span("drost.sync"):
+                overflowed = bool(res.overflowed)
+            if not overflowed:
                 break
             rc = _next_cap(2 * (rc if rc is not None
                                 else max(S // 6, 65536)))

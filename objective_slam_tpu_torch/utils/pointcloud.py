@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from objective_slam_tpu_torch._common import as_tensor, f32
+from objective_slam_tpu_torch.utils.profiling import span
 
 
 class VoxelizedCloud(NamedTuple):
@@ -51,42 +52,43 @@ def voxel_downsample(points, normals, leaf, capacity: int | None = None,
 
     normal_aware extends the cell key with the normal's octant (three sign
     bits), so that geometry thinner than the leaf keeps one point per
-    side."""
-    p = points.to(torch.float32)
-    nr = normals.to(torch.float32)
-    n = p.shape[0]
-    dev = p.device
-    if capacity is None:
-        capacity = n
+    side. The call is the span ``pointcloud.voxel_downsample``."""
+    with span("pointcloud.voxel_downsample"):
+        p = points.to(torch.float32)
+        nr = normals.to(torch.float32)
+        n = p.shape[0]
+        dev = p.device
+        if capacity is None:
+            capacity = n
 
-    lo = torch.min(p, dim=0).values
-    cell = torch.floor((p - lo) / f32(leaf)).to(torch.int32)      # (n, 3)
-    dims = torch.max(cell, dim=0).values + 1
-    key = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
-    if normal_aware:
-        key = key * 8 + _octant(nr)
+        lo = torch.min(p, dim=0).values
+        cell = torch.floor((p - lo) / f32(leaf)).to(torch.int32)      # (n, 3)
+        dims = torch.max(cell, dim=0).values + 1
+        key = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+        if normal_aware:
+            key = key * 8 + _octant(nr)
 
-    order = torch.argsort(key, stable=True)
-    skey = key[order]
-    new_seg = torch.ones(n, dtype=torch.int32, device=dev)
-    new_seg[1:] = (skey[1:] != skey[:-1]).to(torch.int32)
-    seg = torch.cumsum(new_seg, 0, dtype=torch.int32) - 1
-    num_voxels = seg[-1] + 1
-    dropped = num_voxels > capacity
-    seg = torch.clamp(seg, max=capacity - 1).to(torch.int64)
+        order = torch.argsort(key, stable=True)
+        skey = key[order]
+        new_seg = torch.ones(n, dtype=torch.int32, device=dev)
+        new_seg[1:] = (skey[1:] != skey[:-1]).to(torch.int32)
+        seg = torch.cumsum(new_seg, 0, dtype=torch.int32) - 1
+        num_voxels = seg[-1] + 1
+        dropped = num_voxels > capacity
+        seg = torch.clamp(seg, max=capacity - 1).to(torch.int64)
 
-    lengths = torch.bincount(seg, minlength=capacity)
-    psum = torch.segment_reduce(p[order], "sum", lengths=lengths,
-                                unsafe=True, initial=0.0)
-    nsum = torch.segment_reduce(nr[order], "sum", lengths=lengths,
-                                unsafe=True, initial=0.0)
-    denom = torch.clamp(lengths, min=1).to(torch.float32)[:, None]
+        lengths = torch.bincount(seg, minlength=capacity)
+        psum = torch.segment_reduce(p[order], "sum", lengths=lengths,
+                                    unsafe=True, initial=0.0)
+        nsum = torch.segment_reduce(nr[order], "sum", lengths=lengths,
+                                    unsafe=True, initial=0.0)
+        denom = torch.clamp(lengths, min=1).to(torch.float32)[:, None]
 
-    valid = (torch.arange(capacity, device=dev) < num_voxels)[:, None]
-    out_p = torch.where(valid, psum / denom, lo - f32(_PAD_OFFSET))
-    out_n = torch.where(valid, nsum / denom, torch.zeros_like(nsum))
-    return VoxelizedCloud(points=out_p, normals=out_n,
-                          num_voxels=num_voxels, dropped=dropped)
+        valid = (torch.arange(capacity, device=dev) < num_voxels)[:, None]
+        out_p = torch.where(valid, psum / denom, lo - f32(_PAD_OFFSET))
+        out_n = torch.where(valid, nsum / denom, torch.zeros_like(nsum))
+        return VoxelizedCloud(points=out_p, normals=out_n,
+                              num_voxels=num_voxels, dropped=dropped)
 
 
 def _octant(nr):
