@@ -85,12 +85,21 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               tools/voxel_grid_torch.py on a PLY of the bench scan,
               tools/raycast_gap_study_torch.py at its defaults beside the
               JAX study's line
- 18. times    medians over repetitions, each ended by a synchronize, each
-              kernel's device time from torch.profiler, both kernels at
-              every cluster size (blocks per reference row), and the new
-              paths' stages
+ 18. icp      the ICP kernel (csrc/icp_refine.cu) against its plain loop
+              (ops/icp.refine_pose_plain) on the largest refinement that
+              each phase made with each solver, the main path's binpick
+              shape (280 x 12,500, 20 iterations) and the UWA CLI's
+              (about 1,100 x 26,000, 12 iterations) among them: one
+              launch, the same inliers, rms within 1e-5 of itself and the
+              pose within the card tests' tolerance
+ 19. times    medians over repetitions, each ended by a synchronize, each
+              kernel's device time from torch.profiler, both tally kernels
+              at every cluster size (blocks per reference row), the ICP
+              kernel and its plain loop at both main-path shapes, and the
+              new paths' stages
 Every path that launches K1 or K2 also holds that kernel against its plain
-version on the path's own keys and caps (the `holds` line).
+version on the path's own keys and caps (the `holds` line). Each kernel's
+launches are counted on every path, set to 0 just before it.
 Then a JSON line of kernels, the card line again, and the result line.
 Any failed check raises, and the script exits non-zero.
 """
@@ -190,8 +199,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # One entry per comparison of a kernel with its plain version on a driven
-# path's own inputs (hold_kernel).
+# path's own inputs (hold_kernel, hold_icp).
 HOLDS = []
+# The largest ICP refinement of each phase and solver (Phase, hold_icp).
+ICP_CALLS = {}
+# The main path's two ICP shapes, by the calls kept for them: the binpick
+# bench (280 model points, raw[::8] of a 100k scan, 20 iterations) and the
+# UWA-analog CLI (about 1,100 model points, a 26k scan, 12 iterations).
+ICP_SHAPES = {"binpick": "main point", "uwa": "uwa-cli point"}
 
 
 def check(cond, msg):
@@ -199,21 +214,132 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: check failed: {msg}")
 
 
+def reset_launches():
+    """Sets the launch count of every kernel of the port to 0."""
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally, icp
+
+    block_tally.launches = fast_tally.launches = icp.launches = 0
+
+
+def read_launches():
+    """{kernel: launches since reset_launches}."""
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally, icp
+
+    return {"block_tally": block_tally.launches,
+            "fast_tally": fast_tally.launches, "icp_refine": icp.launches}
+
+
+def icp_work(args, kw):
+    """Point pairs a refinement compares: n_m · n_s · iterations."""
+    return args[0].shape[0] * args[1].shape[0] * kw.get("iterations", 12)
+
+
 class Phase:
-    """Prints '[name] ... (t s)' when the block ends without raising."""
+    """Prints '[name] ... (t s)' when the block ends without raising. Keeps
+    the block's largest call of ops/icp.refine_pose of each solver in
+    ICP_CALLS, under '<name> point' or '<name> plane', for hold_icp."""
 
     def __init__(self, name):
         self.name = name
 
     def __enter__(self):
+        from objective_slam_tpu_torch.ops import icp
+
+        self.icp, self.refine = icp, icp.refine_pose
+
+        def refine(*args, **kw):
+            plane = icp._wants_plane(kw.get("point_to_plane"),
+                                     kw.get("scene_normals"))
+            label = f"{self.name} {'plane' if plane else 'point'}"
+            kept = ICP_CALLS.get(label)
+            if kept is None or icp_work(args, kw) > icp_work(*kept):
+                ICP_CALLS[label] = (args, kw)
+            return self.refine(*args, **kw)
+
+        icp.refine_pose = refine
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        self.icp.refine_pose = self.refine
         if exc_type is None:
             print(f"[{self.name}] ok ({time.perf_counter() - self.t0:.1f} s)",
                   flush=True)
         return False
+
+
+def pose_gap(a, b):
+    """(‖t_a − t_b‖, angle of R_aᵀ R_b in rad), in float64."""
+    a, b = (x.detach().cpu().double() for x in (a, b))
+    R = a[:3, :3].T @ b[:3, :3]
+    skew = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                        R[1, 0] - R[0, 1]])
+    ang = torch.atan2(0.5 * torch.linalg.vector_norm(skew),
+                      0.5 * (torch.trace(R) - 1.0))
+    return float(torch.linalg.vector_norm(a[:3, 3] - b[:3, 3])), float(ang)
+
+
+def hold_icp(label):
+    """The ICP kernel against refine_pose_plain on the inputs of the call
+    kept under `label`, as tests/test_torch_icp_kernel.py holds it. Every
+    iteration k alone: the kernel runs it (a Kabsch step, or from the
+    fifth on a plane step where the solver is point-to-plane) from the
+    plain loop's pose after k iterations, against the plain loop's
+    iteration k, to the same inliers, rms within 1e-5 (of rms, above 1),
+    the translation within 5e-5 of the model's diameter and the rotation
+    within 1e-4 rad. Then the whole refinement, one launch, its pose within
+    1e-2 of the diameter of the plain loop's (the largest displacement of a
+    model point): after a step the poses differ in their last bits, and a
+    nearest neighbour that ties with another within a rounding then moves
+    the rest of the run, as the plain loop's own roundings do. Returns the
+    hold's entry and what failed (empty if nothing)."""
+    from objective_slam_tpu_torch.ops import icp
+
+    args, kw = ICP_CALLS[label]
+    m, s, start = args
+    diameter = float((m.amax(0) - m.amin(0)).max()) if m.shape[0] else 1.0
+    plane = label.endswith("plane")
+    steps, failed = [], []
+    for k in range(kw.get("iterations", 12)):
+        want = icp.refine_pose_plain(*args, **dict(kw, iterations=k + 1))
+        got = icp.refine_pose_kernel(
+            m, s, start, **dict(kw, iterations=1, point_to_plane=plane,
+                                kabsch_iterations=1 if k < 4 else 0))
+        td, rd = pose_gap(got.pose, want.pose)
+        rms = float(want.rms)
+        steps.append({"trans": td, "rot_rad": rd,
+                      "rms": abs(float(got.rms) - rms) / max(1.0, rms),
+                      "inliers": abs(int(got.inliers) - int(want.inliers))})
+        start = want.pose
+    limit = {"trans": 5e-5 * diameter, "rot_rad": 1e-4, "rms": 1e-5,
+             "inliers": 0}
+    worst = {key: max((st[key] for st in steps), default=0)
+             for key in limit}
+    failed += [f"step {key}" for key in limit if worst[key] > limit[key]]
+    want = icp.refine_pose_plain(*args, **kw)
+    before = icp.launches
+    got = icp.refine_pose(*args, **kw)
+    sync(s.device)
+    launched = icp.launches - before
+    td, rd = pose_gap(got.pose, want.pose)
+    shift = (m.double() @ (got.pose - want.pose)[:3, :3].double().T
+             + (got.pose - want.pose)[:3, 3].double())
+    moved = float(shift.norm(dim=1).max()) / diameter if m.shape[0] else 0.0
+    entry = {"path": label, "kernel": "icp_refine",
+             "max_abs_err": float((got.pose - want.pose).abs().max()),
+             "steps_worst": worst, "steps_limit": limit,
+             "run": {"trans": td, "rot_rad": rd, "moved": moved,
+                     "rms": float(got.rms), "rms_plain": float(want.rms),
+                     "inliers": int(got.inliers),
+                     "inliers_plain": int(want.inliers)},
+             "diameter": diameter, "n_model": int(m.shape[0]),
+             "n_scan": int(s.shape[0]), "iterations": kw.get("iterations", 12),
+             "plane": plane}
+    HOLDS.append(entry)
+    print("icp hold: " + json.dumps(entry), flush=True)
+    failed += [] if launched == 1 else [f"{launched} launches"]
+    failed += [] if moved <= 1e-2 else ["run moved"]
+    return entry, failed
 
 
 def card_line():
@@ -456,8 +582,7 @@ def main_path(dev, inputs):
     that the later phases and the timings reuse."""
     import objective_slam_tpu_torch as pt
     from objective_slam_tpu_torch.models import drost
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, ppf, \
-        voting, voting_block
+    from objective_slam_tpu_torch.ops import ppf, voting, voting_block
     from objective_slam_tpu_torch.utils import pointcloud as pc, validation
 
     cfg = pt.PPFConfig(max_poses=512, ref_point_df=5, engine="fast",
@@ -488,7 +613,7 @@ def main_path(dev, inputs):
               for T in truths]
         return min(vs, key=lambda v: v.rot_err + (0.0 if v.match else 1e3))
 
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     res = pt.match(desc, vox.points, vox.normals, cfg,
                    icp_points=sp[::8], icp_normals=sn[::8])
     res1, caps = pt.match_with_state(desc, vox.points, vox.normals, cfg,
@@ -500,10 +625,11 @@ def main_path(dev, inputs):
                                ref_point_df=cfg_mi.ref_point_df,
                                vote_cap=cap, config=cfg_mi, seg_cap=seg_cap)
     sync(dev)
-    launches = {"block_tally": block_tally.launches,
-                "fast_tally": fast_tally.launches}
+    launches = read_launches()
 
     check(launches["block_tally"] > 0, "kernel K1 launched on the main path")
+    check(launches["icp_refine"] >= 3,
+          f"each refined match launched the ICP kernel ({launches})")
     for r in (res, res1, res2, res_mi):
         check(not bool(r.overflowed), "no vote overflow")
         check(bool(torch.isfinite(r.pose).all()), "finite pose")
@@ -752,7 +878,7 @@ def traced_cli(argv, dev):
         return res
 
     drost.match = timed_match
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     gc.collect()
     sync(dev)
     torch.cuda.reset_peak_memory_stats()
@@ -765,8 +891,7 @@ def traced_cli(argv, dev):
     sync(dev)
     ms = (time.perf_counter() - t0) * 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = {"block_tally": block_tally.launches,
-                "fast_tally": fast_tally.launches}
+    launches = read_launches()
     return rc, bits, records, launches, (resident_gib, peak_gib), ms
 
 
@@ -879,8 +1004,7 @@ def corr_bench(dev, inputs, st):
     numbers, the launches of its match() call and what `times` reuses."""
     import objective_slam_tpu_torch as pt
     from objective_slam_tpu_torch.models import drost
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
-        voting_block, voting_corr
+    from objective_slam_tpu_torch.ops import voting_block, voting_corr
     from objective_slam_tpu_torch.utils import pointcloud as pc, validation
 
     cfg_corr = pt.PPFConfig(max_poses=512, ref_point_df=5,
@@ -948,12 +1072,11 @@ def corr_bench(dev, inputs, st):
           "runs_cap, the rung before, overflows")
     del res_l, held, below
 
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     res = pt.match(desc, vox.points, vox.normals, cfg_corr,
                    icp_points=sp[::8], icp_normals=sn[::8])
     sync(dev)
-    launches = {"block_tally": block_tally.launches,
-                "fast_tally": fast_tally.launches}
+    launches = read_launches()
     check(not bool(res.overflowed) and int(res.num_votes) == BENCH_VOTES,
           "match() with the correlation engine casts every vote")
     vs = [validation.validate_pose(res.pose.cpu(), T, desc.diameter,
@@ -982,8 +1105,7 @@ def est_normals(dev, inputs, cfg):
     point."""
     import objective_slam_tpu_torch as pt
     from objective_slam_tpu_torch.models import drost
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
-        voting_block
+    from objective_slam_tpu_torch.ops import voting_block
     from objective_slam_tpu_torch.utils import pointcloud as pc, synthetic, \
         validation
 
@@ -1032,11 +1154,10 @@ def est_normals(dev, inputs, cfg):
                                  config=cfg, icp_points=raw_p[::2],
                                  seg_cap=seg_cap)
 
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     res = run(vis_dev)
     sync(dev)
-    launches = {"block_tally": block_tally.launches,
-                "fast_tally": fast_tally.launches}
+    launches = read_launches()
     check(launches["block_tally"] >= 1, "est-normals path launched K1")
     check(not bool(res.overflowed) and int(res.num_votes) == total,
           "est-normals run casts every counted vote")
@@ -1082,7 +1203,6 @@ def fnv_against_packed(desc, sp, sn, cfg, dev, label):
 
     import objective_slam_tpu_torch as pt
     from objective_slam_tpu_torch.models import drost
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally
 
     cfg = dataclasses.replace(cfg, refine_icp=False, use_fnv_keys=False)
     cfg_f = dataclasses.replace(cfg, use_fnv_keys=True)
@@ -1091,11 +1211,10 @@ def fnv_against_packed(desc, sp, sn, cfg, dev, label):
     occupied = int((desc.table.counts > 0).sum())
     k_occ = desc_f.fnv_remap.k_occ
     res_p = drost._match_sized_caps(desc, sp, sn, cfg)[0]
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     res_f, caps_f = drost._match_sized_caps(desc_f, sp, sn, cfg_f)
     sync(dev)
-    launches = {"block_tally": block_tally.launches,
-                "fast_tally": fast_tally.launches}
+    launches = read_launches()
     total_f = drost._count_votes(desc_f, sp, sn, cfg.ref_point_df,
                                  cfg.d_angle)[0]
     check(int(res_f.num_votes) == total_f and not bool(res_f.overflowed),
@@ -1157,8 +1276,10 @@ def uwa_cli_modes(dev, files, base):
                       and r["cfg"].rescore_poses
                       and r["cfg"].icp_point_to_plane,
                       f"{name}: correlation engine with rescoring")
-            check(launches == {"block_tally": 0, "fast_tally": 0},
+            check(launches["block_tally"] == launches["fast_tally"] == 0,
                   "the correlation engine launches neither tally kernel")
+            check(launches["icp_refine"] >= len(names),
+                  f"point-to-plane ICP launched its kernel ({launches})")
             out[mode]["scene_capacity"] = int(records[0]["sp"].shape[0])
         if mode == "fnv":
             check(bits == [base["models"][n]["bit"] for n in names],
@@ -1235,14 +1356,12 @@ def bench_phase(dev):
     of the run."""
     import bench_torch
     from objective_slam_tpu_torch.models import drost
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally
     from objective_slam_tpu_torch.utils import pointcloud as pc
 
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     line, ctx = bench_torch.run(dev, n_seeds=3, reps=10)
     sync(dev)
-    launches = {"block_tally": block_tally.launches,
-                "fast_tally": fast_tally.launches}
+    launches = read_launches()
     extra = line["extra"]
     check(extra["tally_bitequal_on_device"], "bench: K1 and K2 bit-equal")
     check(extra["num_votes"] == BENCH_VOTES
@@ -1316,7 +1435,7 @@ def uwa_sweep(dev, workdir):
             "--scenes", str(n_scenes), "--models", kind,
             "--outdir", str(workdir / kind)])
         drost.match = counted_match
-        block_tally.launches = fast_tally.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         try:
             summary = harness.sweep(args, dev)
@@ -1324,8 +1443,7 @@ def uwa_sweep(dev, workdir):
             drost.match = plain_match
         sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
-        launches = {"block_tally": block_tally.launches,
-                    "fast_tally": fast_tally.launches}
+        launches = read_launches()
         names = summary["models"]
         check(len(records) == n_scenes * len(names),
               f"{kind} sweep: one match per scene and model")
@@ -1338,7 +1456,7 @@ def uwa_sweep(dev, workdir):
         check(summary["match_rate"] == float(np.mean(summary["bits"])),
               f"{kind} sweep: analyze_uwa's match rate is the CLI's bits'")
         if kind == "real":
-            check(launches == {"block_tally": 0, "fast_tally": 0}
+            check(launches["block_tally"] == launches["fast_tally"] == 0
                   and all(r["cfg"].engine == "correlation" for r in records),
                   "real-mesh sweep: correlation engine, no tally kernel")
         else:
@@ -1389,7 +1507,7 @@ def tsdf_phase(dev, workdir):
         return res
 
     drost.match = counted_match
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:
         line, ctx = smoke.run(smoke.parse_args([]), dev)
@@ -1397,8 +1515,7 @@ def tsdf_phase(dev, workdir):
         drost.match = plain_match
     sync(dev)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {"block_tally": block_tally.launches,
-                "fast_tally": fast_tally.launches}
+    launches = read_launches()
     workdir.mkdir(parents=True, exist_ok=True)
     (workdir / "tsdf_smoke.json").write_text(json.dumps(line) + "\n")
 
@@ -1492,13 +1609,10 @@ def recorded_votes():
 def launch_counts(fn):
     """(fn(), {kernel: launches}) with the counts set to 0 just before the
     call and read just after it."""
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally
-
-    block_tally.launches = fast_tally.launches = 0
+    reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    return out, {"block_tally": block_tally.launches,
-                 "fast_tally": fast_tally.launches}
+    return out, read_launches()
 
 
 def hold_shards(records, label):
@@ -2002,6 +2116,20 @@ def main() -> int:
             dev, ROOT / "build" / "eval_tools")
         print(f"eval-tools on {card}: " + json.dumps(eval_numbers))
 
+    with Phase("icp"):
+        # The ICP kernel held on the largest refinement of every phase and
+        # solver, the main path's binpick shape and uwa-cli's UWA shape
+        # among them.
+        failed = {}
+        for label in sorted(ICP_CALLS):
+            f = hold_icp(label)[1]
+            if f:
+                failed[label] = f
+        check(not failed, f"the ICP kernel against its plain loop: {failed}")
+        for label in ICP_SHAPES.values():
+            check(any(h["path"] == label for h in HOLDS),
+                  f"the ICP kernel held on {label}")
+
     with Phase("times"):
         cap, seg_cap = st["cap"], st["seg_cap"]
         cap_vox, d_dist = inputs["vox_capacity"], inputs["d_dist"]
@@ -2200,6 +2328,33 @@ def main() -> int:
             rows, total = top_kernels(fn)
             print(f"profile, {label}: device {total:.3f} ms; "
                   + json.dumps(rows))
+        # The ICP kernel and its plain loop at the main path's two shapes,
+        # in turns: plain, kernel, plain (last: each profiler session of a
+        # long process risks the traces of the ones after it).
+        from objective_slam_tpu_torch.ops import icp
+        icp_times = {}
+        for shape, label in ICP_SHAPES.items():
+            args, kw = ICP_CALLS[label]
+            kw_kernel = dict(kw, point_to_plane=label.endswith("plane"))
+
+            def icp_kernel():
+                icp.refine_pose_kernel(*args, **kw_kernel)
+
+            def icp_plain():
+                icp.refine_pose_plain(*args, **kw)
+
+            icp_kernel()
+            icp_plain()
+            torch.cuda.synchronize()
+            t_plain = event_ms(icp_plain, 3)
+            t_kernel = event_ms(icp_kernel, 20)
+            t_plain += event_ms(icp_plain, 3)
+            icp_times[shape] = {
+                "event_ms": statistics.median(t_kernel),
+                "ms": kernel_ms(icp_kernel, "icp_refine_kernel", 20),
+                "host_ms": statistics.median(host_ms(icp_kernel, 10)),
+                "plain_ms": statistics.median(t_plain)}
+        print(f"icp times on {card}: " + json.dumps(icp_times))
 
     # Bounds: each input byte read once and each output byte written once
     # over the memory rate, or one histogram add per vote over the float32
@@ -2230,12 +2385,33 @@ def main() -> int:
         paths.update(launches_eval)
         return {name: l[kernel] for name, l in paths.items()}
 
+    def icp_shape(shape):
+        """The ICP kernel at one of the main path's shapes: its hold, its
+        times and its bound: 8 float32 operations (an FMA counted as two)
+        a point pair of every iteration (csrc/icp_refine.cu), or each
+        input read once."""
+        label = ICP_SHAPES[shape]
+        args, kw = ICP_CALLS[label]
+        hold = next(h for h in HOLDS if h["path"] == label)
+        n_m, n_s, iters = hold["n_model"], hold["n_scan"], hold["iterations"]
+        normals = (kw.get("scene_normals") is not None) + \
+            (kw.get("model_normals") is not None)
+        b = bound(12 * (n_m + n_s) * (1 + normals) + 72,
+                  8 * n_m * n_s * iters)
+        return {"path": label, "n_model": n_m, "n_scan": n_s,
+                "iterations": iters, "max_abs_err": hold["max_abs_err"],
+                "steps_worst": hold["steps_worst"], "run": hold["run"],
+                **icp_times[shape], "bound_ms": b[0], "bound_by": b[1]}
+
+    icp_shapes = {shape: icp_shape(shape) for shape in ICP_SHAPES}
+
     # Every comparison of a kernel with its plain version on a driven
     # path's own inputs; each raised on a difference.
     print("holds: " + json.dumps(HOLDS))
-    k1_err, k2_err = (max(h["max_abs_err"] for h in HOLDS
-                          if h["kernel"] == k)
-                      for k in ("block_tally", "fast_tally"))
+    k1_err, k2_err, icp_err = (max(h["max_abs_err"] for h in HOLDS
+                                   if h["kernel"] == k)
+                               for k in ("block_tally", "fast_tally",
+                                         "icp_refine"))
     print("bounds: " + json.dumps({
         "k1_bytes": k1_bytes, "k1_l2_pair_row_bytes": int(live) * 512,
         "k2_bytes": k2_bytes, "k2_l2_pair_word_bytes": p_votes * 4}))
@@ -2261,6 +2437,19 @@ def main() -> int:
         "plain_ms": times["k2_plain_ms"],
         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
         "library_ms": None,
+    }, {
+        "name": "icp_refine", "route": "cuda",
+        "source": "objective_slam_tpu_torch/csrc/icp_refine.cu",
+        "replaces": "objective_slam_tpu/ops/icp.py:30",
+        "launches": launches_main["icp_refine"],
+        "launches_by_path": by_path("icp_refine"),
+        "max_abs_err": icp_err, "bitequal": False,
+        "ms": icp_shapes["binpick"]["ms"],
+        "event_ms": icp_shapes["binpick"]["event_ms"],
+        "plain_ms": icp_shapes["binpick"]["plain_ms"],
+        "bound_ms": icp_shapes["binpick"]["bound_ms"],
+        "bound_by": icp_shapes["binpick"]["bound_by"],
+        "library_ms": None, "shapes": icp_shapes,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

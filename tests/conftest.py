@@ -20,6 +20,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers",
+                            "card: needs a CUDA device (skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -53,5 +53,38 @@ def test_editing_a_source_or_its_header_changes_the_library(
 def test_both_kernels_include_the_row_header():
     """K1 and K2 share csrc/row_hist.cuh (the cluster reduction), so both
     libraries are named by it."""
-    for name in _build.KERNELS:
+    for name in ("block_tally", "fast_tally"):
         assert "row_hist.cuh" in [p.name for p in _build._sources(name)]
+
+
+def test_the_icp_kernel_is_built_with_the_others():
+    assert _build.KERNELS == ("block_tally", "fast_tally", "icp_refine")
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_every_kernel_is_named_by_its_source(name):
+    """Each kernel of KERNELS has its source csrc/<name>.cu, and its
+    library is named after it."""
+    src = _build.CSRC / f"{name}.cu"
+    assert src.exists() and _build._sources(name)[0] == src
+    assert _build.library_path(name).name.startswith(f"lib{name}-")
+
+
+@pytest.fixture
+def nvcc():
+    try:
+        return _build.nvcc_path()
+    except RuntimeError:
+        pytest.skip("needs nvcc (the CUDA toolkit) to build the kernels")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_every_kernel_builds_and_loads(nvcc, name, tmp_path, monkeypatch):
+    """nvcc compiles csrc/<name>.cu into a fresh build directory, and the
+    library loads and exports its launcher osn_<name>."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    _build.build((name,))
+    assert _build.library_path(name).exists()
+    assert hasattr(_build.load(name), f"osn_{name}")

@@ -1,7 +1,8 @@
 """The port must run where JAX is absent (the GPU machine has none):
 importing it loads neither jax nor the JAX package, and no module of it,
-chip_smoke.py, bench_torch.py or its tools (tools/*_torch.py) names either
-(or bench.py) in an import."""
+chip_smoke.py, bench_torch.py, its tools (tools/*_torch.py) or the card's
+test file tests/test_torch_icp_kernel.py names either (or bench.py) in an
+import."""
 
 import ast
 import pathlib
@@ -58,7 +59,8 @@ def test_import_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] +
+                         [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                          ROOT / "tests" / "test_torch_icp_kernel.py"] +
                          sorted((ROOT / "tools").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
