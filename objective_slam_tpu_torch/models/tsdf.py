@@ -40,7 +40,7 @@ from objective_slam_tpu_torch._common import as_tensor, default_device, \
     f32, to_numpy
 from objective_slam_tpu_torch.config import PPFConfig
 from objective_slam_tpu_torch.models import drost
-from objective_slam_tpu_torch.utils import pointcloud as pc
+from objective_slam_tpu_torch.utils import pointcloud as pc, profiling
 
 # Float→int casts first clamp the float to this range: XLA saturates an
 # out-of-range cast and torch need not, and every such index is masked
@@ -453,9 +453,16 @@ def raycast_depth(volume: TSDFVolume, intrinsics, T_wc, shape,
     trilinear samples over [bracket − dt, bracket + 9·dt], and the first
     crossing across the windows, in bracket order, is the depth. A window
     without a crossing is a graze of a nearer feature; the next bracket
-    resumes behind it. The step dt = (t_far − t_near)/n_steps must stay
-    below the truncation band. The (n_steps, h, w) stack of the coarse
-    march is kept whole."""
+    resumes behind it. The step dt = (t_far − t_near)/(n_steps − 1) must
+    stay below the truncation band. The (n_steps, h, w) stack of the coarse
+    march is kept whole. The span `tsdf.raycast` holds the call."""
+    with profiling.span("tsdf.raycast"):
+        return _raycast_depth(volume, intrinsics, T_wc, shape, t_near,
+                              t_far, n_steps, fine_steps, n_brackets)
+
+
+def _raycast_depth(volume, intrinsics, T_wc, shape, t_near, t_far, n_steps,
+                   fine_steps, n_brackets):
     dev = volume.device
     h, w = shape
     T = as_tensor(T_wc, dev)
@@ -593,19 +600,21 @@ _OMEGA_MAX = 0.08        # rad per Gauss-Newton step (trust region)
 
 def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
                 iters: int = 10, dist_thresh: float | None = None,
-                normal_cos: float = 0.7) -> TrackResult:
+                normal_cos: float = 0.7, t_near: float = 0.1,
+                t_far: float = 6.0, n_steps: int = 192) -> TrackResult:
     """KinFu frame-to-model camera tracking (tsdf.py:606-740): projective
     point-to-plane ICP of a raw depth frame against the volume's raycast
     view from T_cw_init (the previous pose).
 
-    The model view is raycast once: vertex map from `raycast_depth`,
-    normal map from the TSDF gradient. Each of the `iters` Gauss-Newton
-    steps moves the frame's points by the current estimate, projects them
-    into that view (no k-NN), solves the damped 6×6 point-to-plane normal
-    equations, clamps the rotation step to _OMEGA_MAX and lifts it by
-    Rodrigues. The first iters // 2 steps gate associations at 4× the
+    The model view is raycast once: vertex map from `raycast_depth` with
+    the march (t_near, t_far, n_steps), normal map from the TSDF
+    gradient. Each of the `iters` Gauss-Newton steps moves the frame's
+    points by the current estimate, projects them into that view (no
+    k-NN), solves the damped 6×6 point-to-plane normal equations, clamps
+    the rotation step to _OMEGA_MAX and lifts it by Rodrigues. The first iters // 2 steps gate associations at 4× the
     final radius (16·d²), the rest at dist_thresh (None: 6·voxel_size).
-    The solve is `solve_ex`: no host check per step."""
+    The solve is `solve_ex`: no host check per step. The steps run in the
+    span `tsdf.gauss_newton`."""
     dev = volume.device
     depth = as_tensor(depth, dev)
     h, w = depth.shape
@@ -621,7 +630,8 @@ def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
 
     # Model view from the previous pose: raycast depth -> world vertex map
     # and TSDF-gradient normal map.
-    d_model = raycast_depth(volume, intrinsics, T_wc_prev, (h, w))
+    d_model = raycast_depth(volume, intrinsics, T_wc_prev, (h, w),
+                            t_near=t_near, t_far=t_far, n_steps=n_steps)
     dirs_c = _pixel_rays(intrinsics, (h, w), dev)
     dirs_w = _rotate(T_wc_prev[:3, :3], *dirs_c)
     v_model = torch.stack([_fma(dirs_w[a], d_model, T_wc_prev[a, 3])
@@ -645,58 +655,61 @@ def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
                         -n_cam, n_cam)
     frame_ok = frame_ok.reshape(-1)
 
-    T_wc = _invert_rigid(T_cw_prev)
-    rms = torch.zeros((), dtype=torch.float32, device=dev)
-    inl = ovl = torch.zeros((), dtype=torch.int32, device=dev)
-    for i in range(iters):
-        # Annealed association gate: capture range first, then precision.
-        d2_i = 16.0 * d2_max if i < iters // 2 else d2_max
-        pw = torch.stack(_rotate(T_wc[:3, :3], v_cam[..., 0], v_cam[..., 1],
-                                 v_cam[..., 2], T_wc[:3, 3]), -1)
-        nw = torch.stack(_rotate(T_wc[:3, :3], n_cam[..., 0], n_cam[..., 1],
-                                 n_cam[..., 2]), -1)
-        # Projective association into the PREVIOUS camera.
-        x, y, z = _rotate(T_cw_prev[:3, :3], pw[..., 0], pw[..., 1],
-                          pw[..., 2], T_cw_prev[:3, 3])
-        zc = torch.clamp(z, min=f32(1e-9))
-        up = _round_index(fx * x / zc + cx)
-        vp = _round_index(fy * y / zc + cy)
-        in_img = (z > 0) & (up >= 0) & (up < w) & (vp >= 0) & (vp < h)
-        flat = (torch.clamp(vp, 0, h - 1) * w
-                + torch.clamp(up, 0, w - 1)).reshape(-1)
-        pw = pw.reshape(-1, 3)
-        nw = nw.reshape(-1, 3)
-        vm = v_model[flat]
-        nm = n_model[flat]
-        diff = pw - vm
-        cand = frame_ok & in_img.reshape(-1) & model_ok[flat]
-        ok = (cand & (torch.sum(diff * diff, dim=-1) < d2_i)
-              & (torch.sum(nw * nm, dim=-1) > normal_cos))
-        wf = ok.to(torch.float32)
-        rf = torch.sum(diff * nm, dim=-1)
-        Jf = torch.cat([torch.linalg.cross(pw, nm, dim=-1), nm], dim=-1)
-        Jw = Jf * wf[:, None]
-        A = Jw.T @ Jf + damp
-        b = -(Jw.T @ rf)
-        delta = torch.linalg.solve_ex(A, b).result
-        omega, t = delta[:3], delta[3:]
-        th = torch.linalg.norm(omega) + 1e-12
-        scale = torch.clamp(_OMEGA_MAX / th, max=1.0)
-        omega, t, th = omega * scale, t * scale, th * scale
-        k = omega / th
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        K = torch.stack([torch.stack([zero, -k[2], k[1]]),
-                         torch.stack([k[2], zero, -k[0]]),
-                         torch.stack([-k[1], k[0], zero])])
-        R = eye3 + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
-        dT = torch.eye(4, dtype=torch.float32, device=dev)
-        dT[:3, :3] = R
-        dT[:3, 3] = t
-        wsum = torch.clamp(torch.sum(wf), min=1.0)
-        rms = torch.sqrt(torch.sum(wf * rf * rf) / wsum)
-        inl = torch.sum(wf).to(torch.int32)
-        ovl = torch.sum(cand, dtype=torch.int32)
-        T_wc = dT @ T_wc
+    with profiling.span("tsdf.gauss_newton"):
+        T_wc = _invert_rigid(T_cw_prev)
+        rms = torch.zeros((), dtype=torch.float32, device=dev)
+        inl = ovl = torch.zeros((), dtype=torch.int32, device=dev)
+        for i in range(iters):
+            # Annealed association gate: capture range first, then
+            # precision.
+            d2_i = 16.0 * d2_max if i < iters // 2 else d2_max
+            pw = torch.stack(_rotate(T_wc[:3, :3], v_cam[..., 0],
+                                     v_cam[..., 1], v_cam[..., 2],
+                                     T_wc[:3, 3]), -1)
+            nw = torch.stack(_rotate(T_wc[:3, :3], n_cam[..., 0],
+                                     n_cam[..., 1], n_cam[..., 2]), -1)
+            # Projective association into the PREVIOUS camera.
+            x, y, z = _rotate(T_cw_prev[:3, :3], pw[..., 0], pw[..., 1],
+                              pw[..., 2], T_cw_prev[:3, 3])
+            zc = torch.clamp(z, min=f32(1e-9))
+            up = _round_index(fx * x / zc + cx)
+            vp = _round_index(fy * y / zc + cy)
+            in_img = (z > 0) & (up >= 0) & (up < w) & (vp >= 0) & (vp < h)
+            flat = (torch.clamp(vp, 0, h - 1) * w
+                    + torch.clamp(up, 0, w - 1)).reshape(-1)
+            pw = pw.reshape(-1, 3)
+            nw = nw.reshape(-1, 3)
+            vm = v_model[flat]
+            nm = n_model[flat]
+            diff = pw - vm
+            cand = frame_ok & in_img.reshape(-1) & model_ok[flat]
+            ok = (cand & (torch.sum(diff * diff, dim=-1) < d2_i)
+                  & (torch.sum(nw * nm, dim=-1) > normal_cos))
+            wf = ok.to(torch.float32)
+            rf = torch.sum(diff * nm, dim=-1)
+            Jf = torch.cat([torch.linalg.cross(pw, nm, dim=-1), nm], dim=-1)
+            Jw = Jf * wf[:, None]
+            A = Jw.T @ Jf + damp
+            b = -(Jw.T @ rf)
+            delta = torch.linalg.solve_ex(A, b).result
+            omega, t = delta[:3], delta[3:]
+            th = torch.linalg.norm(omega) + 1e-12
+            scale = torch.clamp(_OMEGA_MAX / th, max=1.0)
+            omega, t, th = omega * scale, t * scale, th * scale
+            k = omega / th
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            K = torch.stack([torch.stack([zero, -k[2], k[1]]),
+                             torch.stack([k[2], zero, -k[0]]),
+                             torch.stack([-k[1], k[0], zero])])
+            R = eye3 + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
+            dT = torch.eye(4, dtype=torch.float32, device=dev)
+            dT[:3, :3] = R
+            dT[:3, 3] = t
+            wsum = torch.clamp(torch.sum(wf), min=1.0)
+            rms = torch.sqrt(torch.sum(wf * rf * rf) / wsum)
+            inl = torch.sum(wf).to(torch.int32)
+            ovl = torch.sum(cand, dtype=torch.int32)
+            T_wc = dT @ T_wc
     return TrackResult(T_cw=_invert_rigid(T_wc), inliers=inl, rms=rms,
                        overlap=ovl)
 
@@ -804,20 +817,29 @@ class StreamingRecognizer:
 
     def integrate_depth_frame(self, depth, intrinsics, T_cw) -> None:
         """Sensor-model fusion of one depth image (free-space carving);
-        T_cw is the frame's world→camera transform."""
-        self.volume = integrate_depth(self.volume, depth, intrinsics, T_cw)
-        self.T_cw = to_numpy(T_cw).astype(np.float32)
+        T_cw is the frame's world→camera transform. The span
+        `tsdf.integrate` holds the update and the pose's host copy, which
+        waits for the update when the pose lies on the card."""
+        with profiling.span("tsdf.integrate"):
+            self.volume = integrate_depth(self.volume, depth, intrinsics,
+                                          T_cw)
+            self.T_cw = to_numpy(T_cw).astype(np.float32)
         self.frames += 1
 
     def track_depth_frame(self, depth, intrinsics, T_cw_hint=None,
-                          min_inlier_frac: float = 0.15
-                          ) -> TrackResult | None:
+                          min_inlier_frac: float = 0.15,
+                          t_near: float = 0.1, t_far: float = 6.0,
+                          n_steps: int = 192) -> TrackResult | None:
         """Consume a raw depth frame without a pose (tsdf.py:861-918):
         track the camera against the fused volume (`track_frame`), then
         integrate at the tracked pose. The first frame anchors the world
         frame and needs T_cw_hint (or an earlier integrate_depth_frame);
         later frames start from the previous tracked pose unless a hint
         is given. Returns the TrackResult (None for the anchoring frame).
+        (t_near, t_far, n_steps) is the model view's raycast march
+        (`raycast_depth`); its step must stay below the truncation band.
+        The span `tsdf.track` holds the tracking and the host read of its
+        inliers and overlap, which waits for it.
 
         Lost-tracking gate: the frame is not fused when inliers <
         min_inlier_frac · overlap, or when overlap is under 5% of the
@@ -834,10 +856,13 @@ class StreamingRecognizer:
             self.integrate_depth_frame(depth, intrinsics, T_cw_hint)
             return None
         init = self.T_cw if T_cw_hint is None else T_cw_hint
-        res = track_frame(self.volume, depth, intrinsics, init)
-        self.last_track = res
-        inl, ovl = torch.stack([res.inliers, res.overlap]).tolist()
         d = to_numpy(depth)
+        depth = as_tensor(depth, self.volume.device)    # one copy, two uses
+        with profiling.span("tsdf.track"):
+            res = track_frame(self.volume, depth, intrinsics, init,
+                              t_near=t_near, t_far=t_far, n_steps=n_steps)
+            inl, ovl = torch.stack([res.inliers, res.overlap]).tolist()
+        self.last_track = res
         valid = int(np.count_nonzero(np.isfinite(d) & (d > 0)))
         self.tracking_lost = (inl < min_inlier_frac * max(ovl, 1)
                               or ovl < 0.05 * valid)

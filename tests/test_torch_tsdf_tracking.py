@@ -272,6 +272,25 @@ def test_track_frame_equals_jax(corner_fused, rot_deg, trans, iters, dist):
     assert abs(td_t - td_j) < 2e-3 and abs(rd_t - rd_j) < math.radians(0.1)
 
 
+def test_track_frame_equals_jax_through_the_march_keywords(corner_fused):
+    """test_track_frame_equals_jax's perturbed case with the raycast march
+    passed as keywords at its defaults: the JAX pose within the same
+    tolerances, and the bits of the port called without them."""
+    c = corner_fused
+    T_init = _perturb_pose(np.random.default_rng(1), c["T_gt"], 4.0, 0.12)
+    want = jt.track_frame(c["vol"], c["depth"], _INTR, T_init, iters=12)
+    vol = _port(c["vol"])
+    got = tt.track_frame(vol, c["depth"], _INTR, T_init, iters=12,
+                         t_near=0.1, t_far=6.0, n_steps=192)
+    np.testing.assert_allclose(_np(got.T_cw), np.asarray(want.T_cw), rtol=0,
+                               atol=2e-3)
+    assert abs(int(got.inliers) - int(want.inliers)) \
+        <= 0.01 * int(want.inliers)
+    plain = tt.track_frame(vol, c["depth"], _INTR, T_init, iters=12)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+
+
 def test_track_frame_recovers_perturbed_pose(corner_fused):
     """Mirror of test_tsdf.py::test_track_frame_recovers_perturbed_pose."""
     c = corner_fused
