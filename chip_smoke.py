@@ -66,7 +66,12 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               overflow, and prints the whole orbit beside the JAX
               package's TPU and CPU figures; the recognitions' tally
               kernel held on their own keys; each stage's peak memory and
-              one traced tracked frame's busy share
+              one traced tracked frame's busy share; then the Gauss-Newton
+              kernel (csrc/gn_track.cu) at 640 x 480 and 10 steps on the
+              tracked volume's own raycast: every step alone against the
+              plain loop (models/tsdf._gauss_newton_plain), one launch a
+              tracked frame, its device time beside its bound and the
+              plain loop's time
  16. sharded  parallel/sharded_match.py: tests/test_sharding.py's
               bench-scale configuration (bench model, seed-0 scan, voxel
               capacity 8192, engine fast, caps from size_sharded_caps)
@@ -170,6 +175,16 @@ TSDF_JAX_REF = {
             "recognize_rot_err_deg": 3.1916912635297177},
 }
 TSDF_HELD_FRAMES = 23
+# The Gauss-Newton kernel's row: a 640 x 480 frame at KinectFusion's
+# intrinsics (kinfu-512-vga), 10 steps. Its work, a step and a valid
+# pixel: the frame's vertex and normal and the model's mask read, the
+# model's vertex and normal gathered (49 B; the frame mask, 1 B, for every
+# pixel), and 140 float32 operations, an FMA as two: the two rotations
+# (33), the projection (24), the residual, gates and dot products (18), the
+# cross product (9) and the normal equations' 28 sums (56)
+# (csrc/gn_track.cu).
+GN_SHAPE, GN_INTR, GN_ITERS = (480, 640), (525.0, 525.0, 319.5, 239.5), 10
+GN_BYTES_VALID, GN_BYTES_PIXEL, GN_OPS_VALID = 49, 1, 140
 TSDF_DRIFT_BOUND = {"rot_deg": 6.24, "trans": 0.134}
 # The match bits of tools/eval_recognition.py --quick, the whole grid, run
 # by the JAX package on the CPU (XLA:CPU, 5,095 s), per "noise,occlusion"
@@ -216,17 +231,21 @@ def check(cond, msg):
 
 def reset_launches():
     """Sets the launch count of every kernel of the port to 0."""
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, icp
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
+        gn_track, icp
 
     block_tally.launches = fast_tally.launches = icp.launches = 0
+    gn_track.launches = 0
 
 
 def read_launches():
     """{kernel: launches since reset_launches}."""
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, icp
+    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
+        gn_track, icp
 
     return {"block_tally": block_tally.launches,
-            "fast_tally": fast_tally.launches, "icp_refine": icp.launches}
+            "fast_tally": fast_tally.launches, "icp_refine": icp.launches,
+            "gn_track": gn_track.launches}
 
 
 def icp_work(args, kw):
@@ -1573,13 +1592,111 @@ def tsdf_phase(dev, workdir):
         round(f["rot_deg"], 3) for f in trk["per_frame"]]
     numbers["tracking"]["held_frames"] = dict(held_drift,
                                               frames=TSDF_HELD_FRAMES)
+    check(launches["gn_track"] == trk["frames_tracked"],
+          f"tsdf: one Gauss-Newton launch a tracked frame ({launches})")
     numbers.update({
         "jax_reference": TSDF_JAX_REF, "drift_bound": TSDF_DRIFT_BOUND,
         "smoke_ms": ms, "launches": launches,
         "tracked_frame": {"host_ms": frame_ms, "device_ms": device_ms,
                           "busy_share": device_ms / frame_ms,
-                          "top_kernels": rows}})
+                          "top_kernels": rows},
+        "gn": gn_row(dev, rec2.volume, init)})
     return numbers, launches
+
+
+def gn_row(dev, volume, T_cw):
+    """The Gauss-Newton kernel at GN_SHAPE and GN_ITERS steps, as
+    tests/test_torch_gn_kernel.py holds it. The frame is `volume`'s own
+    raycast from T_cw moved by 1° and 1 cm, tracked from T_cw. Every step
+    k alone: the kernel from the plain loop's pose after k steps against
+    the plain loop's step k, to the same inliers and overlap, rms within
+    1e-5 of itself and the pose within 1e-5 m and 1e-5 rad. Then one
+    track_frame on the card: one launch. Returns the row: the hold, the
+    kernel's device time over 20 launches, its events time, the plain
+    loop's, and the bound."""
+    from objective_slam_tpu_torch.models import tsdf
+    from objective_slam_tpu_torch.ops import gn_track
+
+    th, c = math.radians(1.0), math.cos(math.radians(1.0))
+    dT = np.eye(4, dtype=np.float32)
+    dT[:3, :3] = [[c, -math.sin(th), 0], [math.sin(th), c, 0], [0, 0, 1]]
+    dT[:3, 3] = 0.01
+    T_cw = np.asarray(T_cw, np.float32)
+    T_frame = torch.from_numpy(dT @ T_cw).to(dev)
+    depth = tsdf.raycast_depth(volume, GN_INTR, tsdf._invert_rigid(T_frame),
+                               GN_SHAPE)
+    seen = []
+    plain_loop, rule = tsdf._gauss_newton_plain, gn_track.uses_kernel
+
+    def spy(*args):
+        seen.append(args)
+        return plain_loop(*args)
+
+    tsdf._gauss_newton_plain, gn_track.uses_kernel = spy, lambda d: False
+    try:
+        tsdf.track_frame(volume, depth, GN_INTR, T_cw, iters=GN_ITERS)
+    finally:
+        tsdf._gauss_newton_plain, gn_track.uses_kernel = plain_loop, rule
+    args = seen[0]
+    steps, T = [], args[7]
+    for k in range(GN_ITERS):
+        step = list(args)
+        step[7], step[11], step[12] = T, 1, int(k < args[12])
+        want = plain_loop(*step)
+        got = gn_track.gauss_newton(*step)
+        td, rd = pose_gap(got[0], want[0])
+        rms = float(want[2])
+        steps.append({"trans": td, "rot_rad": rd,
+                      "rms": abs(float(got[2]) - rms) / max(rms, 1e-30),
+                      "inliers": abs(int(got[1]) - int(want[1])),
+                      "overlap": abs(int(got[3]) - int(want[3]))})
+        T = want[0]
+    limit = {"trans": 1e-5, "rot_rad": 1e-5, "rms": 1e-5, "inliers": 0,
+             "overlap": 0}
+    worst = {key: max(st[key] for st in steps) for key in limit}
+    check(all(worst[key] <= limit[key] for key in limit),
+          f"the Gauss-Newton kernel, step by step: {worst} within {limit}")
+    before = gn_track.launches
+    res = tsdf.track_frame(volume, depth, GN_INTR, T_cw, iters=GN_ITERS)
+    sync(dev)
+    check(gn_track.launches == before + 1,
+          f"one Gauss-Newton launch a frame ({gn_track.launches - before})")
+    want = plain_loop(*args)
+    got = gn_track.gauss_newton(*args)
+    run = dict(zip(("trans", "rot_rad"), pose_gap(got[0], want[0])))
+    run.update(inliers=[int(got[1]), int(want[1])],
+               overlap=[int(got[3]), int(want[3])])
+    HOLDS.append({"path": "tsdf gn 640x480", "kernel": "gn_track",
+                  "max_abs_err": float((got[0] - want[0]).abs().max()),
+                  "steps_worst": worst, "steps_limit": limit, "run": run,
+                  "iterations": GN_ITERS})
+
+    def kernel():
+        gn_track.gauss_newton(*args)
+
+    def plain():
+        plain_loop(*args)
+
+    kernel()
+    plain()
+    sync(dev)
+    t_plain = event_ms(plain, 3)
+    t_kernel = event_ms(kernel, 20)
+    t_plain += event_ms(plain, 3)
+    n = GN_SHAPE[0] * GN_SHAPE[1]
+    n_valid = int(args[2].sum())
+    work_bytes = GN_ITERS * (GN_BYTES_VALID * n_valid + GN_BYTES_PIXEL * n)
+    work_ops = GN_ITERS * GN_OPS_VALID * n_valid
+    b = bound(work_bytes, work_ops)
+    ms = kernel_ms(kernel, "gn_track_kernel", 20)
+    return {"shape": list(GN_SHAPE), "iterations": GN_ITERS,
+            "valid_pixels": n_valid, "inliers": int(res.inliers),
+            "overlap": int(res.overlap), "steps_worst": worst,
+            "run": run, "ms": ms, "event_ms": statistics.median(t_kernel),
+            "host_ms": statistics.median(host_ms(kernel, 10)),
+            "plain_ms": statistics.median(t_plain), "bytes": work_bytes,
+            "ops": work_ops, "bound_ms": b[0], "bound_by": b[1],
+            "share": b[0] / ms}
 
 
 @contextlib.contextmanager
@@ -2404,6 +2521,7 @@ def main() -> int:
                 **icp_times[shape], "bound_ms": b[0], "bound_by": b[1]}
 
     icp_shapes = {shape: icp_shape(shape) for shape in ICP_SHAPES}
+    gn = tsdf_numbers["gn"]
 
     # Every comparison of a kernel with its plain version on a driven
     # path's own inputs; each raised on a difference.
@@ -2450,6 +2568,17 @@ def main() -> int:
         "bound_ms": icp_shapes["binpick"]["bound_ms"],
         "bound_by": icp_shapes["binpick"]["bound_by"],
         "library_ms": None, "shapes": icp_shapes,
+    }, {
+        "name": "gn_track", "route": "cuda",
+        "source": "objective_slam_tpu_torch/csrc/gn_track.cu",
+        "replaces": "objective_slam_tpu/models/tsdf.py:track_frame",
+        "launches": launches_tsdf["gn_track"],
+        "launches_by_path": by_path("gn_track"),
+        "max_abs_err": max(h["max_abs_err"] for h in HOLDS
+                           if h["kernel"] == "gn_track"),
+        "bitequal": False, "ms": gn["ms"], "event_ms": gn["event_ms"],
+        "plain_ms": gn["plain_ms"], "bound_ms": gn["bound_ms"],
+        "bound_by": gn["bound_by"], "library_ms": None, "row": gn,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

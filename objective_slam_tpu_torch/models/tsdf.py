@@ -40,6 +40,7 @@ from objective_slam_tpu_torch._common import as_tensor, default_device, \
     f32, to_numpy
 from objective_slam_tpu_torch.config import PPFConfig
 from objective_slam_tpu_torch.models import drost
+from objective_slam_tpu_torch.ops import gn_track
 from objective_slam_tpu_torch.utils import pointcloud as pc, profiling
 
 # Float→int casts first clamp the float to this range: XLA saturates an
@@ -595,7 +596,8 @@ class TrackResult(NamedTuple):
     #                        denominator of the lost-tracking gate
 
 
-_OMEGA_MAX = 0.08        # rad per Gauss-Newton step (trust region)
+# rad per Gauss-Newton step (trust region; csrc/gn_track.cu, kOmegaMax)
+_OMEGA_MAX = 0.08
 
 
 def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
@@ -611,21 +613,21 @@ def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
     gradient. Each of the `iters` Gauss-Newton steps moves the frame's
     points by the current estimate, projects them into that view (no
     k-NN), solves the damped 6×6 point-to-plane normal equations, clamps
-    the rotation step to _OMEGA_MAX and lifts it by Rodrigues. The first iters // 2 steps gate associations at 4× the
-    final radius (16·d²), the rest at dist_thresh (None: 6·voxel_size).
-    The solve is `solve_ex`: no host check per step. The steps run in the
-    span `tsdf.gauss_newton`."""
+    the rotation step to _OMEGA_MAX and lifts it by Rodrigues. The first
+    iters // 2 steps gate associations at 4× the final radius (16·d²),
+    the rest at dist_thresh (None: 6·voxel_size). The steps run in the
+    span `tsdf.gauss_newton`: on a CUDA device one launch of
+    ``ops/gn_track.gauss_newton`` (all steps on chip) inside the span
+    `tsdf.gn_kernel`, elsewhere ``_gauss_newton_plain``, the eager loop,
+    whose solve is `solve_ex` (no host check per step)."""
     dev = volume.device
     depth = as_tensor(depth, dev)
     h, w = depth.shape
-    fx, fy, cx, cy = _cam_scalars(intrinsics)
     if dist_thresh is None:
         dist_thresh = 6.0 * volume.voxel_size
     d2_max = f32(np.float32(dist_thresh) ** 2)
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
-    damp = 1e-6 * torch.eye(6, dtype=torch.float32, device=dev)
 
-    T_cw_prev = as_tensor(T_cw_init, dev)
+    T_cw_prev = as_tensor(T_cw_init, dev).contiguous()
     T_wc_prev = _invert_rigid(T_cw_prev)
 
     # Model view from the previous pose: raycast depth -> world vertex map
@@ -656,62 +658,89 @@ def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
     frame_ok = frame_ok.reshape(-1)
 
     with profiling.span("tsdf.gauss_newton"):
-        T_wc = _invert_rigid(T_cw_prev)
-        rms = torch.zeros((), dtype=torch.float32, device=dev)
-        inl = ovl = torch.zeros((), dtype=torch.int32, device=dev)
-        for i in range(iters):
-            # Annealed association gate: capture range first, then
-            # precision.
-            d2_i = 16.0 * d2_max if i < iters // 2 else d2_max
-            pw = torch.stack(_rotate(T_wc[:3, :3], v_cam[..., 0],
-                                     v_cam[..., 1], v_cam[..., 2],
-                                     T_wc[:3, 3]), -1)
-            nw = torch.stack(_rotate(T_wc[:3, :3], n_cam[..., 0],
-                                     n_cam[..., 1], n_cam[..., 2]), -1)
-            # Projective association into the PREVIOUS camera.
-            x, y, z = _rotate(T_cw_prev[:3, :3], pw[..., 0], pw[..., 1],
-                              pw[..., 2], T_cw_prev[:3, 3])
-            zc = torch.clamp(z, min=f32(1e-9))
-            up = _round_index(fx * x / zc + cx)
-            vp = _round_index(fy * y / zc + cy)
-            in_img = (z > 0) & (up >= 0) & (up < w) & (vp >= 0) & (vp < h)
-            flat = (torch.clamp(vp, 0, h - 1) * w
-                    + torch.clamp(up, 0, w - 1)).reshape(-1)
-            pw = pw.reshape(-1, 3)
-            nw = nw.reshape(-1, 3)
-            vm = v_model[flat]
-            nm = n_model[flat]
-            diff = pw - vm
-            cand = frame_ok & in_img.reshape(-1) & model_ok[flat]
-            ok = (cand & (torch.sum(diff * diff, dim=-1) < d2_i)
-                  & (torch.sum(nw * nm, dim=-1) > normal_cos))
-            wf = ok.to(torch.float32)
-            rf = torch.sum(diff * nm, dim=-1)
-            Jf = torch.cat([torch.linalg.cross(pw, nm, dim=-1), nm], dim=-1)
-            Jw = Jf * wf[:, None]
-            A = Jw.T @ Jf + damp
-            b = -(Jw.T @ rf)
-            delta = torch.linalg.solve_ex(A, b).result
-            omega, t = delta[:3], delta[3:]
-            th = torch.linalg.norm(omega) + 1e-12
-            scale = torch.clamp(_OMEGA_MAX / th, max=1.0)
-            omega, t, th = omega * scale, t * scale, th * scale
-            k = omega / th
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            K = torch.stack([torch.stack([zero, -k[2], k[1]]),
-                             torch.stack([k[2], zero, -k[0]]),
-                             torch.stack([-k[1], k[0], zero])])
-            R = eye3 + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
-            dT = torch.eye(4, dtype=torch.float32, device=dev)
-            dT[:3, :3] = R
-            dT[:3, 3] = t
-            wsum = torch.clamp(torch.sum(wf), min=1.0)
-            rms = torch.sqrt(torch.sum(wf * rf * rf) / wsum)
-            inl = torch.sum(wf).to(torch.int32)
-            ovl = torch.sum(cand, dtype=torch.int32)
-            T_wc = dT @ T_wc
+        args = (v_cam, n_cam, frame_ok, v_model, n_model, model_ok,
+                T_cw_prev, _invert_rigid(T_cw_prev), intrinsics, d2_max,
+                normal_cos, iters, iters // 2)
+        if gn_track.uses_kernel(dev):
+            with profiling.span("tsdf.gn_kernel"):
+                T_wc, inl, rms, ovl = gn_track.gauss_newton(*args)
+        else:
+            T_wc, inl, rms, ovl = _gauss_newton_plain(*args)
     return TrackResult(T_cw=_invert_rigid(T_wc), inliers=inl, rms=rms,
                        overlap=ovl)
+
+
+def _gauss_newton_plain(v_cam, n_cam, frame_ok, v_model, n_model, model_ok,
+                        T_cw_prev, T_wc, intrinsics, d2_max: float,
+                        normal_cos: float, iters: int, wide_steps: int):
+    """track_frame's Gauss-Newton steps as a loop of small torch ops on
+    any device: the CPU path and the twin of the kernel
+    (ops/gn_track.gauss_newton), which takes the same arguments. From
+    T_wc, `iters` steps against the model view of T_cw_prev (v_model,
+    n_model, model_ok: (h·w, ·) maps) for the frame's camera-space maps
+    v_cam, n_cam (h, w, 3) and frame_ok (h·w,); the first `wide_steps`
+    steps gate associations at 16·d2_max, the rest at d2_max; each step's
+    rotation clamped to _OMEGA_MAX. Returns (T_wc, inliers, rms, overlap)
+    of the last step (zeros without a step)."""
+    dev = v_cam.device
+    h, w = v_cam.shape[:2]
+    fx, fy, cx, cy = _cam_scalars(intrinsics)
+    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
+    damp = 1e-6 * torch.eye(6, dtype=torch.float32, device=dev)
+    rms = torch.zeros((), dtype=torch.float32, device=dev)
+    inl = ovl = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(iters):
+        # Annealed association gate: capture range first, then
+        # precision.
+        d2_i = 16.0 * d2_max if i < wide_steps else d2_max
+        pw = torch.stack(_rotate(T_wc[:3, :3], v_cam[..., 0],
+                                 v_cam[..., 1], v_cam[..., 2],
+                                 T_wc[:3, 3]), -1)
+        nw = torch.stack(_rotate(T_wc[:3, :3], n_cam[..., 0],
+                                 n_cam[..., 1], n_cam[..., 2]), -1)
+        # Projective association into the PREVIOUS camera.
+        x, y, z = _rotate(T_cw_prev[:3, :3], pw[..., 0], pw[..., 1],
+                          pw[..., 2], T_cw_prev[:3, 3])
+        zc = torch.clamp(z, min=f32(1e-9))
+        up = _round_index(fx * x / zc + cx)
+        vp = _round_index(fy * y / zc + cy)
+        in_img = (z > 0) & (up >= 0) & (up < w) & (vp >= 0) & (vp < h)
+        flat = (torch.clamp(vp, 0, h - 1) * w
+                + torch.clamp(up, 0, w - 1)).reshape(-1)
+        pw = pw.reshape(-1, 3)
+        nw = nw.reshape(-1, 3)
+        vm = v_model[flat]
+        nm = n_model[flat]
+        diff = pw - vm
+        cand = frame_ok & in_img.reshape(-1) & model_ok[flat]
+        ok = (cand & (torch.sum(diff * diff, dim=-1) < d2_i)
+              & (torch.sum(nw * nm, dim=-1) > normal_cos))
+        wf = ok.to(torch.float32)
+        rf = torch.sum(diff * nm, dim=-1)
+        Jf = torch.cat([torch.linalg.cross(pw, nm, dim=-1), nm], dim=-1)
+        Jw = Jf * wf[:, None]
+        A = Jw.T @ Jf + damp
+        b = -(Jw.T @ rf)
+        delta = torch.linalg.solve_ex(A, b).result
+        omega, t = delta[:3], delta[3:]
+        th = torch.linalg.norm(omega) + 1e-12
+        scale = torch.clamp(_OMEGA_MAX / th, max=1.0)
+        omega, t, th = omega * scale, t * scale, th * scale
+        k = omega / th
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        K = torch.stack([torch.stack([zero, -k[2], k[1]]),
+                         torch.stack([k[2], zero, -k[0]]),
+                         torch.stack([-k[1], k[0], zero])])
+        R = eye3 + torch.sin(th) * K + (1.0 - torch.cos(th)) * (K @ K)
+        dT = torch.eye(4, dtype=torch.float32, device=dev)
+        dT[:3, :3] = R
+        dT[:3, 3] = t
+        wsum = torch.clamp(torch.sum(wf), min=1.0)
+        rms = torch.sqrt(torch.sum(wf * rf * rf) / wsum)
+        inl = torch.sum(wf).to(torch.int32)
+        ovl = torch.sum(cand, dtype=torch.int32)
+        T_wc = dT @ T_wc
+    return T_wc, inl, rms, ovl
 
 
 class Surface(NamedTuple):

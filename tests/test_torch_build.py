@@ -58,7 +58,10 @@ def test_both_kernels_include_the_row_header():
 
 
 def test_the_icp_kernel_is_built_with_the_others():
-    assert _build.KERNELS == ("block_tally", "fast_tally", "icp_refine")
+    """The ICP kernel and the KinFu Gauss-Newton kernel are built beside
+    K1 and K2."""
+    assert _build.KERNELS == ("block_tally", "fast_tally", "icp_refine",
+                              "gn_track")
 
 
 @pytest.mark.parametrize("name", _build.KERNELS)
