@@ -23,12 +23,16 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               a 280-point model, the seed-0 100k-point bin-picking scan,
               match() and match_with_state() twice, the 4-instance run at
               fixed caps, and the readable-engine flip-rate gate; K1 must
-              have been launched on this path
+              have been launched on this path; then seeds 1 and 2 at the
+              fixed caps: each winner localizes an instance and the
+              4-instance run finds all 4
   6. k1-bench K1 bit-equal to its plain version on the main path's
-              pair table and vote rows
+              pair table and vote rows, and on seeds 1 and 2's keys at
+              the fixed caps
   7. k2-bench round 5's tally gate on the port: on the bench scan, the
               fallback engine (K2) and the block engine (K1) give the same
-              accumulator and 46,218,777 votes each
+              accumulator and 46,218,777 votes each; K2 bit-equal to its
+              plain version on the gate's keys and caps
   8. uwa-cli  the `alignment` CLI (objective_slam_tpu_torch.cli) on the
               UWA-analog scene 1 (tools/run_uwa_analog.py, seed 7) with the
               harness's argv: chef and chicken go through K1, trex and para
@@ -39,7 +43,8 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               316-320, 394-412): the count pass's vote total, per (row, model
               point) the block engine's total, no vote more than one α bin
               off, the runs_cap flag and retry ladder, the chunked path, and
-              the pose through match()
+              the pose through match(); seeds 1 and 2 at the fixed caps
+              localize an instance too
  10. est-normals the bench's estimated-normals run (bench.py:442-518): a
               partial view, normals of model and scene by
               estimate_normals_grid on the card, matched at sized caps
@@ -50,14 +55,11 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               point-to-plane ICP, normal-aware voxel grid), --use_fnv_keys,
               and --estimate_normals_k/--smooth_normals/--visualize on
               model points sampled by area and on the meshes' own vertices
- 13. bench    bench_torch.run, the port's benchmark, at 3 seeds and 10
-              repetitions; its JSON line, gate, vote total, pose flags,
-              4/4 instances per seed and the est-normals match
- 14. uwa-sweep  the dataset harness (tools/run_uwa_analog_torch.py) and
+ 13. uwa-sweep  the dataset harness (tools/run_uwa_analog_torch.py) and
               analyze_uwa: UWA-analog scenes 1-3 with the synthetic models
               and scenes 1-2 with the real bone meshes, bits held against
               the JAX harness's on the CPU
- 15. tsdf     the KinFu TSDF smoke (tools/tsdf_smoke_torch.py) at its
+ 14. tsdf     the KinFu TSDF smoke (tools/tsdf_smoke_torch.py) at its
               defaults: 256³ volume of 2 cm voxels, 8 posed 240² frames
               fused dense and banded, raycast, extraction, recognition,
               then a 48-frame tracked orbit and recognition on the tracked
@@ -72,7 +74,7 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               plain loop (models/tsdf._gauss_newton_plain), one launch a
               tracked frame, its device time beside its bound and the
               plain loop's time
- 16. sharded  parallel/sharded_match.py: tests/test_sharding.py's
+ 15. sharded  parallel/sharded_match.py: tests/test_sharding.py's
               bench-scale configuration (bench model, seed-0 scan, voxel
               capacity 8192, engine fast, caps from size_sharded_caps)
               through 8 in-process shards, vote total = single-chip match,
@@ -82,7 +84,7 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               one NCCL rank (world size 1) equal to one in-process shard;
               K1 and K2 held on every shard's own keys and caps; stage
               times beside the single-chip pipeline
- 17. eval-tools  tools/eval_instances_torch.py --quick (recall and
+ 16. eval-tools  tools/eval_instances_torch.py --quick (recall and
               precision 1.0), tools/eval_recognition_torch.py --quick
               (no overflow, fast and reference bits equal, every engine's
               bits those the JAX tool prints on the CPU, K1 held on each
@@ -90,14 +92,14 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               tools/voxel_grid_torch.py on a PLY of the bench scan,
               tools/raycast_gap_study_torch.py at its defaults beside the
               JAX study's line
- 18. icp      the ICP kernel (csrc/icp_refine.cu) against its plain loop
+ 17. icp      the ICP kernel (csrc/icp_refine.cu) against its plain loop
               (ops/icp.refine_pose_plain) on the largest refinement that
               each phase made with each solver, the main path's binpick
               shape (280 x 12,500, 20 iterations) and the UWA CLI's
               (about 1,100 x 26,000, 12 iterations) among them: one
               launch, the same inliers, rms within 1e-5 of itself and the
               pose within the card tests' tolerance
- 19. times    medians over repetitions, each ended by a synchronize, each
+ 18. times    medians over repetitions, each ended by a synchronize, each
               kernel's device time from torch.profiler, both tally kernels
               at every cluster size (blocks per reference row), the ICP
               kernel and its plain loop at both main-path shapes, and the
@@ -231,21 +233,17 @@ def check(cond, msg):
 
 def reset_launches():
     """Sets the launch count of every kernel of the port to 0."""
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
-        gn_track, icp
+    from objective_slam_tpu_torch.ops import _build
 
-    block_tally.launches = fast_tally.launches = icp.launches = 0
-    gn_track.launches = 0
+    for name in _build.KERNELS:
+        _build.wrapper(name).launches = 0
 
 
 def read_launches():
     """{kernel: launches since reset_launches}."""
-    from objective_slam_tpu_torch.ops import block_tally, fast_tally, \
-        gn_track, icp
+    from objective_slam_tpu_torch.ops import _build
 
-    return {"block_tally": block_tally.launches,
-            "fast_tally": fast_tally.launches, "icp_refine": icp.launches,
-            "gn_track": gn_track.launches}
+    return {name: _build.wrapper(name).launches for name in _build.KERNELS}
 
 
 def icp_work(args, kw):
@@ -596,7 +594,7 @@ def torch_from(x, dev):
 
 
 def main_path(dev, inputs):
-    """Phase 4: the port's main path on the bench scene. Returns the
+    """Phase 5: the port's main path on the bench scene. Returns the
     numbers it measured, the K1 launch count of the path, and the arrays
     that the later phases and the timings reuse."""
     import objective_slam_tpu_torch as pt
@@ -627,7 +625,7 @@ def main_path(dev, inputs):
     vox = pc.voxel_downsample(sp, sn, d_dist, capacity=cap_vox)
     total = counts[SEED][0]
 
-    def best(pose):
+    def best(pose, truths=truths):
         vs = [validation.validate_pose(pose, T, desc.diameter, cfg)
               for T in truths]
         return min(vs, key=lambda v: v.rot_err + (0.0 if v.match else 1e3))
@@ -662,11 +660,33 @@ def main_path(dev, inputs):
     v2 = best(res2.pose.cpu())
     check(v2.match, f"match_with_state winner localizes an instance ({v2})")
 
-    poses_mi, _ = drost.extract_instances(res_mi, desc.diameter,
-                                          max_instances=2 * N_INSTANCES)
-    found = sum(any(validation.validate_pose(p, T, desc.diameter, cfg_mi)
-                    .match for p in poses_mi) for T in truths)
+    def instances(res_mi, truths):
+        poses_mi, _ = drost.extract_instances(res_mi, desc.diameter,
+                                              max_instances=2 * N_INSTANCES)
+        return sum(any(validation.validate_pose(p, T, desc.diameter, cfg_mi)
+                       .match for p in poses_mi) for T in truths)
+
+    found = instances(res_mi, truths)
     check(found == N_INSTANCES, f"instances found {found}/{N_INSTANCES}")
+    # The other seeds at the fixed caps (bench.py:285-305, 419-440).
+    found_by_seed = {SEED: found}
+    for s, (sp_s, sn_s, truths_s) in enumerate(inputs["scenes"]):
+        if s == SEED:
+            continue
+        vox_s = pc.voxel_downsample(sp_s, sn_s, d_dist, capacity=cap_vox)
+        r = drost._match_core(desc, vox_s.points, vox_s.normals,
+                              ref_point_df=cfg.ref_point_df, vote_cap=cap,
+                              config=cfg, icp_points=sp_s[::8],
+                              icp_normals=sn_s[::8], seg_cap=seg_cap)
+        check(not bool(r.overflowed), f"seed {s}: no vote overflow")
+        v_s = best(r.pose.cpu(), truths_s)
+        check(v_s.match, f"seed {s}: winner localizes an instance ({v_s})")
+        found_by_seed[s] = instances(drost._match_core(
+            desc, vox_s.points, vox_s.normals,
+            ref_point_df=cfg_mi.ref_point_df, vote_cap=cap, config=cfg_mi,
+            seg_cap=seg_cap), truths_s)
+        check(found_by_seed[s] == N_INSTANCES,
+              f"seed {s}: instances found {found_by_seed[s]}/{N_INSTANCES}")
 
     # Readable-engine gate (bench.py:141-183, 330-356): the same vote set,
     # float32 binning, so only boundary votes may move one bin.
@@ -691,6 +711,7 @@ def main_path(dev, inputs):
         "topk_saturated": bool(res.topk_saturated),
         "trans_err": v.trans_err, "rot_err_deg": math.degrees(v.rot_err),
         "instances_found": found, "instances_planted": N_INSTANCES,
+        "instances_found_by_seed": found_by_seed,
         "readable_flip_votes": flips, "readable_flip_rate": flip_rate,
     }
     state = dict(desc=desc, cfg=cfg, cap=cap, seg_cap=seg_cap, sp=sp, sn=sn,
@@ -1102,6 +1123,21 @@ def corr_bench(dev, inputs, st):
                                    cfg_corr) for T in truths]
     v = min(vs, key=lambda v: v.rot_err + (0.0 if v.match else 1e3))
     check(v.match, f"correlation winner localizes an instance ({v})")
+    # The other seeds at the fixed caps (bench.py:285-305).
+    for s, (sp_s, sn_s, truths_s) in enumerate(inputs["scenes"]):
+        if s == SEED:
+            continue
+        vox_s = pc.voxel_downsample(sp_s, sn_s, inputs["d_dist"],
+                                    capacity=inputs["vox_capacity"])
+        r = drost._match_core(desc, vox_s.points, vox_s.normals,
+                              ref_point_df=cfg_corr.ref_point_df, vote_cap=0,
+                              config=cfg_corr, icp_points=sp_s[::8],
+                              icp_normals=sn_s[::8])
+        check(not bool(r.overflowed), f"seed {s}: no correlation overflow")
+        vs = [validation.validate_pose(r.pose.cpu(), T, desc.diameter,
+                                       cfg_corr) for T in truths_s]
+        check(any(x.match for x in vs),
+              f"seed {s}: correlation winner localizes an instance")
     out = {
         "num_votes": int(corr.num_votes), "k_occ": tables.k_occ,
         "histogram_bytes": R * cells_per_row * 4,
@@ -1366,63 +1402,8 @@ def knn_vs_cpu(paths, names, dev):
     return out
 
 
-def bench_phase(dev):
-    """Phase 13: bench_torch.run on the card, 3 seeds and 10 repetitions.
-    Holds its gate (raised inside run), the seed-0 vote total, the pose
-    flags, 4/4 instances per seed and the est-normals match; then K1 on
-    every seed's keys at the fixed caps and on the est-normals view, and K2
-    on the gate's keys at its caps. Returns the JSON line and the launches
-    of the run."""
-    import bench_torch
-    from objective_slam_tpu_torch.models import drost
-    from objective_slam_tpu_torch.utils import pointcloud as pc
-
-    reset_launches()
-    line, ctx = bench_torch.run(dev, n_seeds=3, reps=10)
-    sync(dev)
-    launches = read_launches()
-    extra = line["extra"]
-    check(extra["tally_bitequal_on_device"], "bench: K1 and K2 bit-equal")
-    check(extra["num_votes"] == BENCH_VOTES
-          and extra["per_seed"][0]["num_votes"] == BENCH_VOTES,
-          f"bench: seed 0 casts {BENCH_VOTES} votes, got "
-          f"{extra['num_votes']}")
-    check(extra["readable_engine_flip_rate"] < 1e-4, "bench: flip rate")
-    check(extra["pose_match"] and extra["pose_match_corr"],
-          "bench: pose_match and pose_match_corr")
-    check(extra["instances_found"] == [N_INSTANCES] * 3,
-          f"bench: instances {extra['instances_found']}")
-    check(extra["est_normals"]["match"], "bench: est-normals run matches")
-    check(not extra["overflowed"], "bench: no overflow")
-    check(launches["block_tally"] > 0 and launches["fast_tally"] > 0,
-          f"bench launched K1 and K2 ({launches})")
-
-    desc, cfg = ctx["desc"], ctx["cfg"]
-    caps = drost.MatchCaps(ctx["cap"], ctx["seg_cap"], None, cfg.max_poses)
-    for s, (sp, sn, _) in enumerate(ctx["scenes"]):
-        vox = ctx["vox_of"](sp, sn)
-        _, _, _, keys, alpha, _ = hold_scene(desc, vox.points, vox.normals,
-                                             cfg, f"bench seed{s}",
-                                             caps=caps)
-        if s == 0:
-            hold_kernel(desc, keys, alpha, cfg.n_angle, ctx["cap_fast_gate"],
-                        None, "bench gate (fallback engine)", fallback=True)
-            check(HOLDS[-1]["kernel"] == "fast_tally"
-                  and HOLDS[-1]["votes"] == BENCH_VOTES,
-                  "bench gate held K2 on every vote")
-        del keys, alpha
-    vis = ctx["vis_dev"]
-    vox = pc.voxel_downsample(vis, ctx["est_normals"](vis),
-                              ctx["scene_leaf"], capacity=ctx["vis_cap"])
-    hold_scene(ctx["desc_est"], vox.points, vox.normals, cfg,
-               "bench est-normals",
-               caps=drost.MatchCaps(ctx["cap_e"], ctx["seg_e"], None,
-                                    cfg.max_poses))
-    return line, launches
-
-
 def uwa_sweep(dev, workdir):
-    """Phase 14: the dataset harness (tools/run_uwa_analog_torch.py) on the
+    """Phase 13: the dataset harness (tools/run_uwa_analog_torch.py) on the
     card, with analyze_uwa on its logs: scenes 1-3 with the synthetic
     models (the packed argv) and scenes 1-2 with the real meshes (the
     real-mesh argv), bits held against the JAX harness's on the CPU. Each
@@ -1502,7 +1483,7 @@ def uwa_sweep(dev, workdir):
 
 
 def tsdf_phase(dev, workdir):
-    """Phase 15: tools/tsdf_smoke_torch.run at its defaults on the card,
+    """Phase 14: tools/tsdf_smoke_torch.run at its defaults on the card,
     with drost.match wrapped so that each recognition's kernel launches
     are counted and its inputs kept. Holds the orbit and recognition
     criteria, then the tally kernel of each distinct recognition input on
@@ -1615,7 +1596,7 @@ def gn_row(dev, volume, T_cw):
     kernel's device time over 20 launches, its events time, the plain
     loop's, and the bound."""
     from objective_slam_tpu_torch.models import tsdf
-    from objective_slam_tpu_torch.ops import gn_track
+    from objective_slam_tpu_torch.ops import _build, gn_track
 
     th, c = math.radians(1.0), math.cos(math.radians(1.0))
     dT = np.eye(4, dtype=np.float32)
@@ -1626,17 +1607,17 @@ def gn_row(dev, volume, T_cw):
     depth = tsdf.raycast_depth(volume, GN_INTR, tsdf._invert_rigid(T_frame),
                                GN_SHAPE)
     seen = []
-    plain_loop, rule = tsdf._gauss_newton_plain, gn_track.uses_kernel
+    plain_loop, rule = tsdf._gauss_newton_plain, _build.uses_kernel
 
     def spy(*args):
         seen.append(args)
         return plain_loop(*args)
 
-    tsdf._gauss_newton_plain, gn_track.uses_kernel = spy, lambda d: False
+    tsdf._gauss_newton_plain, _build.uses_kernel = spy, lambda d: False
     try:
         tsdf.track_frame(volume, depth, GN_INTR, T_cw, iters=GN_ITERS)
     finally:
-        tsdf._gauss_newton_plain, gn_track.uses_kernel = plain_loop, rule
+        tsdf._gauss_newton_plain, _build.uses_kernel = plain_loop, rule
     args = seen[0]
     steps, T = [], args[7]
     for k in range(GN_ITERS):
@@ -1742,7 +1723,7 @@ def hold_shards(records, label):
 
 
 def sharded_phase(dev, st, corr_st, para, uwa_fileset):
-    """Phase 16: the sharded matcher (parallel/sharded_match.py) on the
+    """Phase 15: the sharded matcher (parallel/sharded_match.py) on the
     card. (a) tests/test_sharding.py::test_sharded_bench_scale's
     configuration through 8 in-process shards; (b) UWA-analog scene 1's
     para (over the block budgets) through 4; (c) the correlation engine's
@@ -1912,7 +1893,7 @@ def sharded_phase(dev, st, corr_st, para, uwa_fileset):
 
 
 def eval_tools_phase(dev, workdir):
-    """Phase 17: the evaluation tools on the card. eval_instances_torch
+    """Phase 16: the evaluation tools on the card. eval_instances_torch
     --quick (recall and precision 1.0 on both seeds); eval_recognition_torch
     --quick (fast and reference bits equal per scene, no overflow, the bits
     the JAX tool prints on the CPU); ppf_timer_torch at n = 256;
@@ -2130,6 +2111,16 @@ def main() -> int:
         pair2d, src_row, alpha_row, row_start_p, live = k1_args
         check(HOLDS[-1]["votes"] == numbers["num_votes"],
               "K1 tallies every vote of the main path")
+        fixed = drost.MatchCaps(st["cap"], st["seg_cap"], None,
+                                st["cfg"].max_poses)
+        for s, (sp_s, sn_s, _) in enumerate(inputs["scenes"]):
+            if s != SEED:
+                vox_s = pc.voxel_downsample(sp_s, sn_s, inputs["d_dist"],
+                                            capacity=inputs["vox_capacity"])
+                held = hold_scene(st["desc"], vox_s.points, vox_s.normals,
+                                  st["cfg"], f"main (bench-seed{s})",
+                                  caps=fixed)[0]
+                check(held == "block_tally", f"seed {s} held K1")
         k1_cluster = block_tally.cluster_size(src_row.shape[0],
                                               row_start_p.shape[0])
         print(f"k1 bench shape: pair2d {tuple(pair2d.shape)}, src_row "
@@ -2154,6 +2145,11 @@ def main() -> int:
               "no overflow in either engine")
         check(torch.equal(fast.accumulator, block.accumulator),
               "fallback engine (K2) and block engine (K1) bit-equal")
+        hold_kernel(desc, st["keys"], st["alpha"], cfg.n_angle, fast_cap,
+                    None, "k2-bench gate (fallback engine)", fallback=True)
+        check(HOLDS[-1]["kernel"] == "fast_tally"
+              and HOLDS[-1]["votes"] == BENCH_VOTES,
+              "the gate held K2 on every vote")
         print(f"k2 bench: votes {votes[0]} in both engines, fallback "
               f"vote_cap {fast_cap}, cluster "
               f"{fast_tally.cluster_size(fast_cap, st['n_ref'])}, "
@@ -2209,10 +2205,6 @@ def main() -> int:
     with Phase("uwa-cli-modes"):
         modes_numbers, launches_modes = uwa_cli_modes(dev, uwa_fileset, uwa)
         print("uwa-cli-modes: " + json.dumps(modes_numbers))
-
-    with Phase("bench"):
-        bench_line, launches_bench = bench_phase(dev)
-        print("bench: " + json.dumps(bench_line))
 
     with Phase("uwa-sweep"):
         sweep_numbers, launches_sweep = uwa_sweep(dev,
@@ -2495,7 +2487,6 @@ def main() -> int:
                  "fnv-bench": launches_fnv_bench,
                  "fnv-trex": launches_fnv_trex}
         paths.update({f"uwa-cli-{m}": l for m, l in launches_modes.items()})
-        paths["bench"] = launches_bench
         paths.update({f"uwa-sweep-{k}": l for k, l in launches_sweep.items()})
         paths["tsdf"] = launches_tsdf
         paths.update(launches_sharded)

@@ -44,3 +44,19 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+# Spare slots behind a drop-mode scatter's output. Where most indices are
+# dropped (the fallback engine's empty scene pairs), one spare slot would
+# take all their atomics on one address, one after another on the card.
+_SPARE = 4096
+
+
+def scatter_add_drop(size, idx, vals, dtype=torch.int32):
+    """zeros(size).at[idx].add(vals, mode="drop"): indices outside
+    [0, size) go to spare slots that are sliced off."""
+    out = torch.zeros(size + _SPARE, dtype=dtype, device=idx.device)
+    spare = size + torch.arange(idx.shape[0], device=idx.device) % _SPARE
+    idx = torch.where((idx >= 0) & (idx < size), idx.to(torch.int64), spare)
+    out.index_add_(0, idx, vals.to(dtype))
+    return out[:size]

@@ -40,7 +40,7 @@ from objective_slam_tpu_torch._common import as_tensor, default_device, \
     f32, to_numpy
 from objective_slam_tpu_torch.config import PPFConfig
 from objective_slam_tpu_torch.models import drost
-from objective_slam_tpu_torch.ops import gn_track
+from objective_slam_tpu_torch.ops import _build, gn_track
 from objective_slam_tpu_torch.utils import pointcloud as pc, profiling
 
 # Float→int casts first clamp the float to this range: XLA saturates an
@@ -661,7 +661,7 @@ def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
         args = (v_cam, n_cam, frame_ok, v_model, n_model, model_ok,
                 T_cw_prev, _invert_rigid(T_cw_prev), intrinsics, d2_max,
                 normal_cos, iters, iters // 2)
-        if gn_track.uses_kernel(dev):
+        if _build.uses_kernel(dev):
             with profiling.span("tsdf.gn_kernel"):
                 T_wc, inl, rms, ovl = gn_track.gauss_newton(*args)
         else:

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each source ``csrc/<name>.cu`` is compiled by nvcc for sm_90a into a shared
 library with a plain C interface and loaded with ctypes. Libraries go to
@@ -7,12 +7,18 @@ source, the ``csrc/*.cuh`` headers it includes and the flags, so an edited
 source or header rebuilds and an unchanged one is reused. Nothing is
 built at import: ``load`` builds at first use, and ``build`` compiles
 several sources at once (one nvcc each, all started together).
+
+Launching is here too: ``uses_kernel`` is the one rule that picks a kernel
+or its plain twin, and ``launch`` calls a kernel's launcher on the current
+stream and turns its error codes into exceptions. Each wrapper module
+(``KERNELS``) keeps its own argument checks, outputs and launch count.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import pathlib
 import re
@@ -20,10 +26,14 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("block_tally", "fast_tally", "icp_refine", "gn_track")
+# Each kernel's source name and the ops module that wraps it.
+KERNELS = {"block_tally": "block_tally", "fast_tally": "fast_tally",
+           "icp_refine": "icp", "gn_track": "gn_track"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -114,17 +124,42 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-# Returned by a launcher when no thread-block cluster of the asked shape
-# fits the card (csrc/row_hist.cuh, kErrNoClusterFits).
-ERR_NO_CLUSTER_FITS = -1
+def wrapper(name: str):
+    """The module that launches csrc/<name>.cu: its wrapper, which holds
+    the module integer ``launches``."""
+    return importlib.import_module(f"{__package__}.{KERNELS[name]}")
 
 
-def raise_on_error(kernel: str, lib: ctypes.CDLL, err: int, cluster: int,
-                   smem: int) -> None:
-    """Raise if a launcher returned an error code (0 is success)."""
-    if err == ERR_NO_CLUSTER_FITS:
-        raise RuntimeError(f"{kernel}: no cluster of {cluster} blocks with "
-                           f"{smem} B of shared memory each fits the card")
+def uses_kernel(device: torch.device) -> bool:
+    """The port's one path rule: a kernel for tensors on a CUDA device,
+    its plain torch twin for tensors anywhere else."""
+    return device.type == "cuda"
+
+
+# Returned by a launcher when its kernel's block or cluster fits no SM
+# (csrc/row_hist.cuh kErrNoClusterFits, csrc/icp_refine.cu, csrc/gn_track.cu).
+_ERR_NO_FIT = -1
+
+
+def launch(name: str, argtypes, *args, device: torch.device,
+           no_fit: str) -> None:
+    """Call the launcher ``osn_<name>`` of csrc/<name>.cu with `args` and
+    `device`'s current stream, the stream after `args`. `argtypes` are
+    the ctypes of `args`; they type the launcher once per loaded library.
+    A return of −1 raises RuntimeError(no_fit), any other non-zero code
+    RuntimeError with the CUDA error's text."""
+    lib = load(name)
+    fn = getattr(lib, f"osn_{name}")
+    if not getattr(lib, "_osn_typed", False):
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.osn_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.osn_cuda_error_string.restype = ctypes.c_char_p
+        lib._osn_typed = True
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err == _ERR_NO_FIT:
+        raise RuntimeError(no_fit)
     if err != 0:
-        raise RuntimeError(f"{kernel}: launch failed: "
+        raise RuntimeError(f"{name}: launch failed: "
                            + lib.osn_cuda_error_string(err).decode())

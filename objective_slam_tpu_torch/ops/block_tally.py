@@ -6,9 +6,9 @@ Replaces the TPU kernel ``objective_slam_tpu.ops.voting_block._tally``
 row gather before it (:421). The CUDA source is ``csrc/block_tally.cu``;
 its header note gives the design and what bounds it on the card.
 
-``block_tally`` runs the plain version for CPU tensors and launches the
-kernel for CUDA tensors (or raises); it never falls back from one to the
-other. The module integer ``launches`` counts kernel launches (only
+``block_tally`` launches the kernel for CUDA tensors and runs the plain
+version for others (``_build.uses_kernel``); it never falls back from one
+to the other. The module integer ``launches`` counts kernel launches (only
 launches: the plain version does not count).
 """
 
@@ -33,6 +33,11 @@ _M_MASK = (1 << M_BITS) - 1
 MAX_CLUSTER = 8                 # blocks per reference row (portable limit)
 _ROWS_PER_BLOCK = 192           # vote rows a cluster block aims to take
 
+# The launcher's arguments before the stream (csrc/block_tally.cu).
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
 launches = 0
 
 
@@ -45,7 +50,7 @@ def _unpack_bin(pp, a_s, n_angle: int):
     return m, torch.clamp((w * n_angle) >> ALPHA_BITS, 0, ALPHA_PAD - 1)
 
 
-def _chunk_row_map(r_of_chunk_start, R: int, chunk_rows: int, n_chunks: int):
+def chunk_row_map(r_of_chunk_start, R: int, chunk_rows: int, n_chunks: int):
     """chunk → owning reference row (voting_block.py:427-440): each row id
     is scattered (max) at its start chunk, then a running max. A start at
     or past n_chunks — an empty trailing row of an exactly full buffer —
@@ -74,7 +79,7 @@ def tally_rows_plain(pp, alpha_row, row_start_p, total_rows_p,
     row_cap = pp.shape[0]
     R = row_start_p.shape[0]
     cells = R * n_model * ALPHA_PAD
-    owner, start = _chunk_row_map(row_start_p, R, 1, row_cap)
+    owner, start = chunk_row_map(row_start_p, R, 1, row_cap)
     t = torch.arange(row_cap, device=pp.device)
     owned = (t >= start[0]) & (t < total_rows_p.reshape(()))
     m, a_bin = _unpack_bin(pp, alpha_row[:, None], n_angle)
@@ -99,30 +104,16 @@ def cluster_size(row_cap: int, R: int) -> int:
     return max(1, min(MAX_CLUSTER, row_cap // max(R, 1) // _ROWS_PER_BLOCK))
 
 
-def _lib():
-    lib = _build.load("block_tally")
-    if not getattr(lib, "_osn_typed", False):
-        lib.osn_block_tally.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p]
-        lib.osn_block_tally.restype = ctypes.c_int
-        lib.osn_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.osn_cuda_error_string.restype = ctypes.c_char_p
-        lib._osn_typed = True
-    return lib
+def _named(pair2d, src_row, alpha_row, row_start_p, total_rows_p):
+    return (("pair2d", pair2d), ("src_row", src_row),
+            ("alpha_row", alpha_row), ("row_start_p", row_start_p),
+            ("total_rows_p", total_rows_p))
 
 
 def _check(pair2d, src_row, alpha_row, row_start_p, total_rows_p, n_model,
            n_angle):
-    dev = pair2d.device
-    for name, t in (("pair2d", pair2d), ("src_row", src_row),
-                    ("alpha_row", alpha_row), ("row_start_p", row_start_p),
-                    ("total_rows_p", total_rows_p)):
-        if t.device != dev:
-            raise ValueError(f"block_tally: {name} is on {t.device}, "
-                             f"pair2d on {dev}")
+    for name, t in _named(pair2d, src_row, alpha_row, row_start_p,
+                          total_rows_p):
         if t.dtype != torch.int32:
             raise TypeError(f"block_tally: {name} must be int32, "
                             f"got {t.dtype}")
@@ -157,17 +148,18 @@ def block_tally(pair2d, src_row, alpha_row, row_start_p, total_rows_p,
     pair2d (n_rows + 1, 128) int32 pair table (row n_rows all sentinel),
     src_row (row_cap,) int32 table row of each vote row, alpha_row
     (row_cap,) int32, row_start_p (R,) int32, total_rows_p () int32 (the
-    live vote rows; read on the device, so the host never waits for it).
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream with `cluster` blocks per reference row (default
-    ``cluster_size(row_cap, R)``)."""
+    live vote rows; read on the device, so the host never waits for it),
+    all on one device. CUDA tensors launch the kernel on the current
+    stream with `cluster` blocks per reference row (default
+    ``cluster_size(row_cap, R)``); others take the plain version."""
     global launches
     tensors = (pair2d, src_row, alpha_row, row_start_p, total_rows_p)
-    if all(t.device.type == "cpu" for t in tensors):
-        return block_tally_plain(pair2d, src_row, alpha_row, row_start_p,
-                                 total_rows_p, n_model, n_angle)
-    if pair2d.device.type != "cuda":
-        raise ValueError(f"block_tally: unsupported device {pair2d.device}")
+    for name, t in _named(*tensors):
+        if t.device != pair2d.device:
+            raise ValueError(f"block_tally: {name} is on {t.device}, "
+                             f"pair2d on {pair2d.device}")
+    if not _build.uses_kernel(pair2d.device):
+        return block_tally_plain(*tensors, n_model, n_angle)
     _check(*tensors, n_model, n_angle)
     R = row_start_p.shape[0]
     row_cap = src_row.shape[0]
@@ -178,15 +170,13 @@ def block_tally(pair2d, src_row, alpha_row, row_start_p, total_rows_p,
                          f"[1, {MAX_CLUSTER}]")
     out = torch.empty((R, n_model, ALPHA_PAD), dtype=torch.int32,
                       device=pair2d.device)
-    lib = _lib()
-    with torch.cuda.device(pair2d.device):
-        stream = torch.cuda.current_stream(pair2d.device).cuda_stream
-        err = lib.osn_block_tally(
-            pair2d.data_ptr(), pair2d.shape[0], src_row.data_ptr(),
-            alpha_row.data_ptr(), row_start_p.data_ptr(),
-            total_rows_p.data_ptr(), R, row_cap, n_model, n_angle, cluster,
-            out.data_ptr(), stream)
-    _build.raise_on_error("block_tally", lib, err, cluster,
-                          n_model * ALPHA_PAD * 4)
+    _build.launch(
+        "block_tally", _ARGTYPES, pair2d.data_ptr(), pair2d.shape[0],
+        src_row.data_ptr(), alpha_row.data_ptr(), row_start_p.data_ptr(),
+        total_rows_p.data_ptr(), R, row_cap, n_model, n_angle, cluster,
+        out.data_ptr(), device=pair2d.device,
+        no_fit=f"block_tally: no cluster of {cluster} blocks with "
+               f"{n_model * ALPHA_PAD * 4} B of shared memory each fits "
+               "the card")
     launches += 1
     return out

@@ -10,11 +10,11 @@ bounds it on the card.
 
 The plain version is the per-slot route: ``expand_slots`` writes the
 per-vote arrays (m_r, a_bin, vote_ok) over the whole vote buffer, and
-``fast_tally_plain`` tallies them by chunk. ``fast_tally`` runs it for CPU
-tensors and launches the kernel, which walks the scene pairs and writes no
-per-vote array, for CUDA tensors (or raises); it never falls back from one
-to the other. The module integer ``launches`` counts kernel launches (only
-launches: the plain version does not count).
+``fast_tally_plain`` tallies them by chunk. ``fast_tally`` launches the
+kernel, which walks the scene pairs and writes no per-vote array, for CUDA
+tensors and runs the plain version for others (``_build.uses_kernel``); it
+never falls back from one to the other. The module integer ``launches``
+counts kernel launches (only launches: the plain version does not count).
 """
 
 from __future__ import annotations
@@ -24,13 +24,12 @@ import math
 
 import torch
 
-from objective_slam_tpu_torch._common import f32
+from objective_slam_tpu_torch._common import f32, scatter_add_drop
 from objective_slam_tpu_torch.ops import _build
 from objective_slam_tpu_torch.ops import voting as voting_ref
 from objective_slam_tpu_torch.ops.block_tally import ALPHA_BITS, M_BITS, \
-    MAX_CLUSTER, _chunk_row_map
+    MAX_CLUSTER, chunk_row_map
 from objective_slam_tpu_torch.ops.voting import ALPHA_PAD
-from objective_slam_tpu_torch.ops.voting_block import _scatter_add_drop
 
 # Widest model whose (n_model, 32) int32 histogram fits one block's shared
 # memory beside the kernel's 12 KB of tile arrays (227 KB in all); wider
@@ -39,6 +38,11 @@ SMEM_MAX_MODEL = 1712
 _ALPHA_SCALE = (1 << ALPHA_BITS) / (2.0 * math.pi)
 _ALPHA_MAX = (1 << ALPHA_BITS) - 1
 _VOTES_PER_BLOCK = 32768        # vote slots a cluster block aims to take
+# The launcher's arguments before the stream (csrc/fast_tally.cu).
+_ARGTYPES = (*[ctypes.c_void_p] * 8, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
 
 launches = 0
 
@@ -55,7 +59,7 @@ def fill_last(size, idx, vals):
     starts at or before the slot); the two differ only on padding slots,
     where vote_ok is false."""
     diff = vals - torch.cat([vals.new_zeros(1), vals[:-1]])
-    d = _scatter_add_drop(size, idx, diff)
+    d = scatter_add_drop(size, idx, diff)
     return torch.cumsum(d, dim=0, dtype=torch.int32)
 
 
@@ -93,8 +97,8 @@ def expand_slots(cnt, off, alpha_fix, row_start_p, row_tot, total_p, tables,
         """Each segment's value on its votes, 0 elsewhere: + at the head,
         − at the tail, then a scan. Segments never overlap, so the value
         rides exactly."""
-        d = _scatter_add_drop(vote_cap, head_idx, vals, dtype)
-        d += _scatter_add_drop(vote_cap, tail_idx, -vals.to(dtype), dtype)
+        d = scatter_add_drop(vote_cap, head_idx, vals, dtype)
+        d += scatter_add_drop(vote_cap, tail_idx, -vals.to(dtype), dtype)
         return torch.cumsum(d, dim=0, dtype=dtype)
 
     # (offset, count) ride one int64 fill, 32 bits each.
@@ -144,7 +148,7 @@ def fast_tally_plain(m_r, a_bin, vote_ok, row_start_p, total_p,
     cast_votes_fast makes.
 
     Chunk c of `chunk` votes belongs to the last reference row r with
-    row_start_p[r] // chunk <= c (``_chunk_row_map``; an empty row shares
+    row_start_p[r] // chunk <= c (``chunk_row_map``; an empty row shares
     its start with the next row, and a start at or past the buffer's end
     drops out). Votes are counted where vote_ok is set, the slot is below
     total_p (cast_votes_fast clears vote_ok there), 0 <= m_r < n_model and
@@ -153,7 +157,7 @@ def fast_tally_plain(m_r, a_bin, vote_ok, row_start_p, total_p,
     n_chunks = vote_cap // chunk
     R = row_start_p.shape[0]
     cells = R * n_model * ALPHA_PAD
-    owner, start = _chunk_row_map(row_start_p, R, chunk, n_chunks)
+    owner, start = chunk_row_map(row_start_p, R, chunk, n_chunks)
     v = torch.arange(vote_cap, device=m_r.device)
     c = v // chunk
     ok = (vote_ok & (v < total_p.reshape(()).to(torch.int64))
@@ -190,20 +194,6 @@ def cluster_size(vote_cap: int, R: int) -> int:
     return max(1, min(MAX_CLUSTER, vote_cap // max(R, 1) // _VOTES_PER_BLOCK))
 
 
-def _lib():
-    lib = _build.load("fast_tally")
-    if not getattr(lib, "_osn_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.osn_fast_tally.argtypes = [
-            p, p, p, p, p, p, p, p, i, i, i, ctypes.c_int64, i, i,
-            ctypes.c_float, ctypes.c_float, i, i, p, p]
-        lib.osn_fast_tally.restype = ctypes.c_int
-        lib.osn_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.osn_cuda_error_string.restype = ctypes.c_char_p
-        lib._osn_typed = True
-    return lib
-
-
 def _table_tensors(tables):
     """(pair_packed, pair_mr, pair_alpha) with the unused ones None."""
     if tables.pair_packed is not None:
@@ -213,7 +203,6 @@ def _table_tensors(tables):
 
 def _check(cnt, off, alpha_fix, row_start_p, row_tot, tables, n, vote_cap,
            n_model, n_angle):
-    dev = cnt.device
     packed, pair_mr, pair_alpha = _table_tensors(tables)
     args = [("cnt", cnt, torch.int32), ("off", off, torch.int32),
             ("alpha_fix", alpha_fix, torch.int32),
@@ -228,9 +217,6 @@ def _check(cnt, off, alpha_fix, row_start_p, row_tot, tables, n, vote_cap,
         args += [("pair_mr", pair_mr, torch.int32),
                  ("pair_alpha", pair_alpha, torch.float32)]
     for name, t, dtype in args:
-        if t.device != dev:
-            raise ValueError(f"fast_tally: {name} is on {t.device}, "
-                             f"cnt on {dev}")
         if t.dtype != dtype:
             raise TypeError(f"fast_tally: {name} must be {dtype}, "
                             f"got {t.dtype}")
@@ -274,21 +260,24 @@ def fast_tally(cnt, off, alpha_fix, row_start_p, row_tot, tables, n: int,
     (R,) int32 chunk-aligned first slot of each reference row; row_tot (R,)
     int32 votes of each row; tables the FastModelTables (pair_packed, or
     pair_mr and pair_alpha); vote_cap the rounded capacity: a vote at slot
-    vote_cap or later is dropped. CPU tensors take the plain version; CUDA
-    tensors launch the kernel on the current stream with `cluster` blocks
+    vote_cap or later is dropped; every tensor on one device. CUDA tensors
+    launch the kernel on the current stream with `cluster` blocks
     per reference row (default ``cluster_size(vote_cap, R)``): its
     shared-memory histogram up to SMEM_MAX_MODEL points, its global-atomic
-    path above."""
+    path above. Others take the plain version."""
     global launches
     packed, pair_mr, pair_alpha = _table_tensors(tables)
-    tensors = [t for t in (cnt, off, alpha_fix, row_start_p, row_tot, packed,
-                           pair_mr, pair_alpha) if t is not None]
-    if all(t.device.type == "cpu" for t in tensors):
+    for name, t in (("off", off), ("alpha_fix", alpha_fix),
+                    ("row_start_p", row_start_p), ("row_tot", row_tot),
+                    ("pair_packed", packed), ("pair_mr", pair_mr),
+                    ("pair_alpha", pair_alpha)):
+        if t is not None and t.device != cnt.device:
+            raise ValueError(f"fast_tally: {name} is on {t.device}, "
+                             f"cnt on {cnt.device}")
+    if not _build.uses_kernel(cnt.device):
         return fast_tally_plain_pairs(cnt, off, alpha_fix, row_start_p,
                                       row_tot, tables, n, vote_cap, n_model,
                                       n_angle)
-    if cnt.device.type != "cuda":
-        raise ValueError(f"fast_tally: unsupported device {cnt.device}")
     _check(cnt, off, alpha_fix, row_start_p, row_tot, tables, n, vote_cap,
            n_model, n_angle)
     R = row_start_p.shape[0]
@@ -302,19 +291,17 @@ def fast_tally(cnt, off, alpha_fix, row_start_p, row_tot, tables, n: int,
     alloc = torch.empty if shared else torch.zeros
     out = alloc((R, n_model, ALPHA_PAD), dtype=torch.int32, device=cnt.device)
     table = packed if packed is not None else pair_mr
-    lib = _lib()
-    with torch.cuda.device(cnt.device):
-        stream = torch.cuda.current_stream(cnt.device).cuda_stream
-        err = lib.osn_fast_tally(
-            cnt.data_ptr(), off.data_ptr(), alpha_fix.data_ptr(),
-            row_start_p.data_ptr(), row_tot.data_ptr(),
-            None if packed is None else packed.data_ptr(),
-            None if pair_mr is None else pair_mr.data_ptr(),
-            None if pair_alpha is None else pair_alpha.data_ptr(),
-            table.shape[0], R, n, vote_cap, n_model, n_angle,
-            float(f32(math.pi)), float(f32(_ALPHA_SCALE)), int(shared),
-            cluster, out.data_ptr(), stream)
-    _build.raise_on_error("fast_tally", lib, err, cluster,
-                          n_model * ALPHA_PAD * 4 if shared else 0)
+    _build.launch(
+        "fast_tally", _ARGTYPES, cnt.data_ptr(), off.data_ptr(),
+        alpha_fix.data_ptr(), row_start_p.data_ptr(), row_tot.data_ptr(),
+        None if packed is None else packed.data_ptr(),
+        None if pair_mr is None else pair_mr.data_ptr(),
+        None if pair_alpha is None else pair_alpha.data_ptr(),
+        table.shape[0], R, n, vote_cap, n_model, n_angle,
+        float(f32(math.pi)), float(f32(_ALPHA_SCALE)), int(shared), cluster,
+        out.data_ptr(), device=cnt.device,
+        no_fit=f"fast_tally: no cluster of {cluster} blocks with "
+               f"{n_model * ALPHA_PAD * 4 if shared else 0} B of shared "
+               "memory each fits the card")
     launches += 1
     return out

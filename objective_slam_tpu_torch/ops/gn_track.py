@@ -22,30 +22,12 @@ from objective_slam_tpu_torch.ops import _build
 # Floats of the kernel's workspace: two buffers of partial sums, a row of
 # 32 for each of at most 1,024 blocks (csrc/gn_track.cu, kMaxGrid).
 _PARTIALS = 2 * 1024 * 32
-# Returned by the launcher when no block fits an SM (csrc/gn_track.cu).
-_ERR_NO_BLOCK_FITS = -1
+# The launcher's arguments before the stream (csrc/gn_track.cu).
+_ARGTYPES = (*[ctypes.c_void_p] * 8, ctypes.c_int, ctypes.c_int,
+             *[ctypes.c_float] * 7, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p)
 
 launches = 0
-
-
-def uses_kernel(device: torch.device) -> bool:
-    """The path rule of track_frame's Gauss-Newton loop: the kernel for
-    maps on a CUDA device, else the plain loop."""
-    return device.type == "cuda"
-
-
-def _lib():
-    lib = _build.load("gn_track")
-    if not getattr(lib, "_osn_typed", False):
-        ptr, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.osn_gn_track.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, f, f, f, f, f,
-            f, f, i32, i32, ptr, ptr, ptr]
-        lib.osn_gn_track.restype = ctypes.c_int
-        lib.osn_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.osn_cuda_error_string.restype = ctypes.c_char_p
-        lib._osn_typed = True
-    return lib
 
 
 def _check(x, name, shape, dtype, dev):
@@ -89,22 +71,17 @@ def gauss_newton(v_cam, n_cam, frame_ok, v_model, n_model, model_ok,
             ("T_cw_prev", T_cw_prev, (4, 4), torch.float32),
             ("T_wc", T_wc, (4, 4), torch.float32)):
         _check(x, name, shape, dtype, dev)
-    if dev.type != "cuda":
+    if not _build.uses_kernel(dev):
         raise ValueError(f"gn_track: unsupported device {dev}")
     fx, fy, cx, cy = (f32(v) for v in intrinsics)
     out = torch.empty(32 + _PARTIALS, dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.osn_gn_track(
-            v_cam.data_ptr(), n_cam.data_ptr(), frame_ok.data_ptr(),
-            v_model.data_ptr(), n_model.data_ptr(), model_ok.data_ptr(),
-            T_wc.data_ptr(), T_cw_prev.data_ptr(), h, w, fx, fy, cx, cy,
-            f32(16.0 * d2_max), f32(d2_max), f32(normal_cos), iters,
-            wide_steps, out[32:].data_ptr(), out.data_ptr(), stream)
-    if err == _ERR_NO_BLOCK_FITS:
-        raise RuntimeError("gn_track: no block fits an SM")
-    _build.raise_on_error("gn_track", lib, err, 1, 0)
+    _build.launch(
+        "gn_track", _ARGTYPES, v_cam.data_ptr(), n_cam.data_ptr(),
+        frame_ok.data_ptr(), v_model.data_ptr(), n_model.data_ptr(),
+        model_ok.data_ptr(), T_wc.data_ptr(), T_cw_prev.data_ptr(), h, w, fx,
+        fy, cx, cy, f32(16.0 * d2_max), f32(d2_max), f32(normal_cos), iters,
+        wide_steps, out[32:].data_ptr(), out.data_ptr(), device=dev,
+        no_fit="gn_track: no block fits an SM")
     launches += 1
     counts = out[17:19].view(torch.int32)
     return out[:16].view(4, 4), counts[0], out[16], counts[1]

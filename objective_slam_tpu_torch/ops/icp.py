@@ -45,8 +45,12 @@ _JACOBI_SWEEPS = 12
 _JACOBI_TOL = 1e-7
 _RANK_TOL = 1e-6
 
-# Returned by the launcher when no block fits an SM (csrc/icp_refine.cu).
-_ERR_NO_BLOCK_FITS = -1
+# The launcher's arguments before the stream (csrc/icp_refine.cu).
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p)
 
 launches = 0
 
@@ -161,12 +165,6 @@ def _wants_plane(point_to_plane, scene_normals) -> bool:
     return point_to_plane
 
 
-def uses_kernel(device: torch.device) -> bool:
-    """The path rule of refine_pose: the kernel for clouds on a CUDA
-    device, else the plain loop."""
-    return device.type == "cuda"
-
-
 def refine_pose(model_points, scene_points, init_pose, *,
                 iterations: int = 12, max_dist: float,
                 scene_valid=None, scene_normals=None, model_normals=None,
@@ -176,15 +174,15 @@ def refine_pose(model_points, scene_points, init_pose, *,
     scene_points (see the JAX package's docstring for each argument).
     point_to_plane=None means point-to-plane iff scene_normals are given.
 
-    Where ``uses_kernel`` holds (`scene_points` on a CUDA device) the call
-    is one launch of the kernel, ``refine_pose_kernel``: the span
+    Where ``_build.uses_kernel`` holds (`scene_points` on a CUDA device)
+    the call is one launch of the kernel, ``refine_pose_kernel``: the span
     ``icp.refine`` holding one span ``icp.kernel``. Otherwise it is
     ``refine_pose_plain``."""
     kw = dict(iterations=iterations, max_dist=max_dist,
               scene_valid=scene_valid, scene_normals=scene_normals,
               model_normals=model_normals,
               normal_cos_thresh=normal_cos_thresh)
-    if not uses_kernel(scene_points.device):
+    if not _build.uses_kernel(scene_points.device):
         return refine_pose_plain(model_points, scene_points, init_pose,
                                  point_to_plane=point_to_plane, **kw)
     with span("icp.refine"):
@@ -192,20 +190,6 @@ def refine_pose(model_points, scene_points, init_pose, *,
         with span("icp.kernel"):
             return refine_pose_kernel(model_points, scene_points, init_pose,
                                       point_to_plane=plane, **kw)
-
-
-def _lib():
-    lib = _build.load("icp_refine")
-    if not getattr(lib, "_osn_typed", False):
-        ptr, i32, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.osn_icp_refine.argtypes = [
-            ptr, ptr, ptr, i32, ptr, i32, ptr, ptr, i32, i32, f, f, i32,
-            i32, i32, ptr, ptr, ptr]
-        lib.osn_icp_refine.restype = ctypes.c_int
-        lib.osn_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.osn_cuda_error_string.restype = ctypes.c_char_p
-        lib._osn_typed = True
-    return lib
 
 
 def _rows(x, name: str, device, contiguous: bool = False):
@@ -236,7 +220,7 @@ def refine_pose_kernel(model_points, scene_points, init_pose, *,
     one plane step can be run alone from a given pose."""
     global launches
     dev = scene_points.device
-    if dev.type != "cuda":
+    if not _build.uses_kernel(dev):
         raise ValueError(f"refine_pose_kernel: unsupported device {dev}")
     m = _rows(model_points, "model_points", dev, contiguous=True)
     s = _rows(scene_points, "scene_points", dev)
@@ -274,22 +258,15 @@ def refine_pose_kernel(model_points, scene_points, init_pose, *,
         n_point_iters = kabsch_iterations
     keys = torch.empty(3 * n_m, dtype=torch.int64, device=dev)
     out = torch.empty(18, dtype=torch.float32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.osn_icp_refine(
-            m.data_ptr(), None if mn is None else mn.data_ptr(),
-            s.data_ptr(), s.stride(0), None if sn is None else sn.data_ptr(),
-            0 if sn is None else sn.stride(0),
-            None if valid is None else valid.data_ptr(), T.data_ptr(), n_m,
-            n_s, f32(max_dist) ** 2, normal_cos_thresh, iterations,
-            n_point_iters, int(gate), keys.data_ptr(), out.data_ptr(),
-            stream)
-    if err == _ERR_NO_BLOCK_FITS:
-        raise RuntimeError("icp_refine: no block fits an SM")
-    if err != 0:
-        raise RuntimeError("icp_refine: launch failed: "
-                           + lib.osn_cuda_error_string(err).decode())
+    _build.launch(
+        "icp_refine", _ARGTYPES, m.data_ptr(),
+        None if mn is None else mn.data_ptr(), s.data_ptr(), s.stride(0),
+        None if sn is None else sn.data_ptr(),
+        0 if sn is None else sn.stride(0),
+        None if valid is None else valid.data_ptr(), T.data_ptr(), n_m, n_s,
+        f32(max_dist) ** 2, normal_cos_thresh, iterations, n_point_iters,
+        int(gate), keys.data_ptr(), out.data_ptr(), device=dev,
+        no_fit="icp_refine: no block fits an SM")
     launches += 1
     return ICPResult(pose=out[:16].view(4, 4), rms=out[16],
                      inliers=out[17:].view(torch.int32)[0])

@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from objective_slam_tpu_torch._common import f32
+from objective_slam_tpu_torch._common import f32, scatter_add_drop
 from objective_slam_tpu_torch.ops import block_tally as k1
 from objective_slam_tpu_torch.ops import voting as voting_ref
 from objective_slam_tpu_torch.ops.block_tally import ALPHA_BITS, LANES, \
@@ -153,22 +153,6 @@ def cast_votes_block(scene_keys, scene_alpha, tables: BlockTables,
                                  overflowed=overflow)
 
 
-# Spare slots behind a drop-mode scatter's output. Where most indices are
-# dropped (the fallback engine's empty scene pairs), one spare slot would
-# take all their atomics on one address, one after another on the card.
-_SPARE = 4096
-
-
-def _scatter_add_drop(size, idx, vals, dtype=torch.int32):
-    """zeros(size).at[idx].add(vals, mode="drop"): indices outside
-    [0, size) go to spare slots that are sliced off."""
-    out = torch.zeros(size + _SPARE, dtype=dtype, device=idx.device)
-    spare = size + torch.arange(idx.shape[0], device=idx.device) % _SPARE
-    idx = torch.where((idx >= 0) & (idx < size), idx.to(torch.int64), spare)
-    out.index_add_(0, idx, vals.to(dtype))
-    return out[:size]
-
-
 def _expand(scene_keys, scene_alpha, tables: BlockTables, vote_cap: int,
             chunk_rows: int, seg_cap: int | None = None):
     """Dictionary match + row allocation + per-row fills
@@ -255,9 +239,9 @@ def _expand(scene_keys, scene_alpha, tables: BlockTables, vote_cap: int,
     row_end = torch.where(has_seg, row_start_p + row_tot, i32(row_cap))
 
     idx = torch.cat([head_idx, row_end])
-    d_u = _scatter_add_drop(row_cap, idx,
+    d_u = scatter_add_drop(row_cap, idx,
                             torch.cat([torch.where(seg_ok, du, 0), -u_last]))
-    d_a = _scatter_add_drop(row_cap, idx,
+    d_a = scatter_add_drop(row_cap, idx,
                             torch.cat([torch.where(seg_ok, da, 0), -a_last]))
     fill_u = torch.cumsum(d_u, 0, dtype=torch.int32)
     alpha_row = torch.cumsum(d_a, 0, dtype=torch.int32)

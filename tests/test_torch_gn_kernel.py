@@ -39,7 +39,7 @@ import pytest
 import torch
 
 from objective_slam_tpu_torch.models import tsdf
-from objective_slam_tpu_torch.ops import gn_track
+from objective_slam_tpu_torch.ops import _build, gn_track
 from objective_slam_tpu_torch.utils import profiling, synthetic
 
 CENTER = np.float32([1.6, 1.6, 1.4])
@@ -136,7 +136,7 @@ def _gn_args(scene, T_init, iters, blank=False, **kw):
     depth = scene["depth"] * np.float32(0.0 if blank else 1.0)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tsdf, "_gauss_newton_plain", spy)
-        mp.setattr(gn_track, "uses_kernel", lambda device: False)
+        mp.setattr(_build, "uses_kernel", lambda device: False)
         tsdf.track_frame(scene["vol"], depth, scene["intr"], T_init,
                          iters=iters, **kw)
     return seen[0]
@@ -157,6 +157,25 @@ def _with(args, T_wc=None, iters=None, wide_steps=None):
 @pytest.fixture(scope="module")
 def cpu_scene():
     return _scene("cpu", CPU_SHAPE, CPU_INTR)
+
+
+@pytest.fixture(scope="module")
+def cpu_start(cpu_scene):
+    """The CPU scene's start 4° and 12 cm off its true pose."""
+    return _perturbed(cpu_scene["T_gt"], 4.0, 0.12)
+
+
+@pytest.fixture(scope="module")
+def cpu_args(cpu_scene, cpu_start):
+    """The arguments track_frame hands its 10-step loop from cpu_start."""
+    return _gn_args(cpu_scene, cpu_start, 10)
+
+
+@pytest.fixture(scope="module")
+def cpu_tracked(cpu_scene, cpu_start):
+    """track_frame's result from cpu_start on the plain path."""
+    return tsdf.track_frame(cpu_scene["vol"], cpu_scene["depth"], CPU_INTR,
+                            cpu_start)
 
 
 def _loop_as_it_was(v_cam, n_cam, frame_ok, v_model, n_model, model_ok,
@@ -256,7 +275,8 @@ def _spans_of(fn):
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_path_rule_and_spans(cpu_scene, monkeypatch, device):
+def test_path_rule_and_spans(cpu_scene, cpu_start, cpu_tracked, monkeypatch,
+                             device):
     """The kernel for maps on a CUDA device, inside `tsdf.gn_kernel`
     within `tsdf.gauss_newton`; the plain loop otherwise, with no
     `tsdf.gn_kernel` span. (The CUDA path runs here with the device rule
@@ -271,28 +291,24 @@ def test_path_rule_and_spans(cpu_scene, monkeypatch, device):
 
     monkeypatch.setattr(gn_track, "gauss_newton", kernel)
     if device == "cuda":
-        monkeypatch.setattr(gn_track, "uses_kernel", lambda d: True)
-    assert gn_track.uses_kernel(torch.device("cpu")) == (device == "cuda")
-    T_init = _perturbed(cpu_scene["T_gt"], 4.0, 0.12)
+        monkeypatch.setattr(_build, "uses_kernel", lambda d: True)
+    assert _build.uses_kernel(torch.device("cpu")) == (device == "cuda")
     out = []
     names = _spans_of(lambda: out.append(tsdf.track_frame(
-        cpu_scene["vol"], cpu_scene["depth"], CPU_INTR, T_init)))
+        cpu_scene["vol"], cpu_scene["depth"], CPU_INTR, cpu_start)))
     assert calls == (["kernel"] if device == "cuda" else [])
     assert "tsdf.gauss_newton" in names
     assert names.count("tsdf.gn_kernel") == (device == "cuda")
     if device == "cuda":
         i = names.index("tsdf.gauss_newton")
         assert names[i + 1] == "tsdf.gn_kernel"
-    monkeypatch.undo()
-    want = tsdf.track_frame(cpu_scene["vol"], cpu_scene["depth"], CPU_INTR,
-                            T_init)
-    for a, b in zip(out[0], want):
+    for a, b in zip(out[0], cpu_tracked):
         assert torch.equal(a, b)
 
 
 def test_cuda_uses_the_kernel():
-    assert gn_track.uses_kernel(torch.device("cuda", 0))
-    assert not gn_track.uses_kernel(torch.device("cpu"))
+    assert _build.uses_kernel(torch.device("cuda", 0))
+    assert not _build.uses_kernel(torch.device("cpu"))
 
 
 def _bad(args, i, x):
@@ -312,11 +328,11 @@ def _bad(args, i, x):
     ("v_cam_flat", r"v_cam must be \(h, w, 3\)"),
     ("negative_iters", "iters >= 0"),
 ])
-def test_wrapper_refuses(cpu_scene, case, match):
+def test_wrapper_refuses(cpu_args, case, match):
     """gauss_newton raises on what the kernel does not take, before any
     launch: maps off a CUDA device, another dtype, shape or layout, maps
     on two devices, a negative step count."""
-    args = _gn_args(cpu_scene, _perturbed(cpu_scene["T_gt"], 4.0, 0.12), 10)
+    args = cpu_args
     n = CPU_SHAPE[0] * CPU_SHAPE[1]
     bad = {
         "cpu": args,

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from objective_slam_tpu_torch.ops import icp, transforms as tr
+from objective_slam_tpu_torch.ops import _build, icp, transforms as tr
 from objective_slam_tpu_torch.utils import pointcloud as pc, profiling, \
     synthetic
 
@@ -108,7 +108,7 @@ def test_dispatch_rule(monkeypatch, device, n_m, solver):
     icp.refine_pose(_cloud(device, n_m), _cloud(device, 50), torch.eye(4),
                     max_dist=0.1, scene_normals=normals)
     want = "kernel" if device == "cuda" else "plain"
-    assert icp.uses_kernel(torch.device(device)) == (want == "kernel")
+    assert _build.uses_kernel(torch.device(device)) == (want == "kernel")
     assert [c[0] for c in calls] == [want]
     plane = calls[0][1]["point_to_plane"]
     assert plane == (solver == "plane" if want == "kernel" else None)
@@ -152,7 +152,7 @@ def test_spans_of_each_path(icp_scene, monkeypatch):
     assert [s.name for s in log] == ["icp.refine"] + ["icp.iteration"] * 3
     assert all(s.parent == 0 for s in log[1:])
 
-    monkeypatch.setattr(icp, "uses_kernel", lambda device: True)
+    monkeypatch.setattr(_build, "uses_kernel", lambda device: True)
     monkeypatch.setattr(icp, "refine_pose_kernel", lambda *a, **kw: None)
     log = _spans_of(lambda: icp.refine_pose(*args, iterations=3,
                                             max_dist=max_dist))

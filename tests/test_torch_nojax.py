@@ -1,8 +1,8 @@
 """The port must run where JAX is absent (the GPU machine has none):
 importing it loads neither jax nor the JAX package, and no module of it,
-chip_smoke.py, bench_torch.py, its tools (tools/*_torch.py) or the card's
-test file tests/test_torch_icp_kernel.py names either (or bench.py) in an
-import."""
+chip_smoke.py, its tools (tools/*_torch.py) or the card's test files
+(tests/test_torch_icp_kernel.py, tests/test_torch_gn_kernel.py) names
+either (or bench.py) in an import."""
 
 import ast
 import pathlib
@@ -43,7 +43,6 @@ def test_import_leaves_jax_unloaded():
         "from objective_slam_tpu_torch.models import tsdf\n"
         "from objective_slam_tpu_torch.parallel import sharded_match\n"
         "import chip_smoke\n"
-        "import bench_torch\n"
         "sys.path.insert(0, 'tools')\n"
         "import run_uwa_analog_torch\n"
         "import tsdf_smoke_torch\n"
@@ -59,8 +58,9 @@ def test_import_leaves_jax_unloaded():
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
-                          ROOT / "tests" / "test_torch_icp_kernel.py"] +
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "tests" / "test_torch_icp_kernel.py",
+                          ROOT / "tests" / "test_torch_gn_kernel.py"] +
                          sorted((ROOT / "tools").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):

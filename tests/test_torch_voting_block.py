@@ -235,7 +235,7 @@ def test_chunk_row_map_matches_jax(starts, R, n_chunks):
     """Mirror of test_chunk_row_map_full_buffer_empty_trailing_row."""
     cj, sj = jvb._chunk_row_map(jnp.asarray(starts, jnp.int32), R=R,
                                 chunk_rows=4, n_chunks=n_chunks)
-    ct, st = block_tally._chunk_row_map(torch.tensor(starts, dtype=torch.int32),
+    ct, st = block_tally.chunk_row_map(torch.tensor(starts, dtype=torch.int32),
                                         R, 4, n_chunks)
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
