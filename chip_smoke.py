@@ -73,7 +73,12 @@ checkout; imports nothing of JAX. Phases, each printing its own line:
               tracked volume's own raycast: every step alone against the
               plain loop (models/tsdf._gauss_newton_plain), one launch a
               tracked frame, its device time beside its bound and the
-              plain loop's time
+              plain loop's time; then the raycast kernel (csrc/raycast.cu)
+              at 640 x 480 on the same volume with the default march and
+              the kinfu-512-vga cell's: depths bit-equal to the plain
+              version's (models/tsdf._raycast_depth), one launch a
+              tracked frame, each of its three kernels' device time
+              beside the bound and the plain version's time
  15. sharded  parallel/sharded_match.py: tests/test_sharding.py's
               bench-scale configuration (bench model, seed-0 scan, voxel
               capacity 8192, engine fast, caps from size_sharded_caps)
@@ -187,6 +192,14 @@ TSDF_HELD_FRAMES = 23
 # (csrc/gn_track.cu).
 GN_SHAPE, GN_INTR, GN_ITERS = (480, 640), (525.0, 525.0, 319.5, 239.5), 10
 GN_BYTES_VALID, GN_BYTES_PIXEL, GN_OPS_VALID = 49, 1, 140
+# The raycast kernel's row, at GN_SHAPE and GN_INTR: the default march and
+# the kinfu-512-vga cell's (t_near, t_far, n_steps). Its bound counts each
+# byte once: the volume's tsdf and weight read (8 B a voxel), the two mask
+# planes written (8 B a 32 voxels) and the depth written (4 B a pixel);
+# the march's mask and sample reads come from the L2 cache
+# (csrc/raycast.cu).
+RAYCAST_MARCHES = {"default": (0.1, 6.0, 192), "kinfu-512-vga":
+                   (0.4, 4.0, 160)}
 TSDF_DRIFT_BOUND = {"rot_deg": 6.24, "trans": 0.134}
 # The match bits of tools/eval_recognition.py --quick, the whole grid, run
 # by the JAX package on the CPU (XLA:CPU, 5,095 s), per "noise,occlusion"
@@ -1575,14 +1588,86 @@ def tsdf_phase(dev, workdir):
                                               frames=TSDF_HELD_FRAMES)
     check(launches["gn_track"] == trk["frames_tracked"],
           f"tsdf: one Gauss-Newton launch a tracked frame ({launches})")
+    check(launches["raycast"] == trk["frames_tracked"] + 2,
+          f"tsdf: one raycast launch a tracked frame and each of the "
+          f"smoke's two views ({launches})")
     numbers.update({
         "jax_reference": TSDF_JAX_REF, "drift_bound": TSDF_DRIFT_BOUND,
         "smoke_ms": ms, "launches": launches,
         "tracked_frame": {"host_ms": frame_ms, "device_ms": device_ms,
                           "busy_share": device_ms / frame_ms,
                           "top_kernels": rows},
-        "gn": gn_row(dev, rec2.volume, init)})
+        "gn": gn_row(dev, rec2.volume, init),
+        "raycast": raycast_row(dev, rec2.volume, init)})
     return numbers, launches
+
+
+def raycast_row(dev, volume, T_cw):
+    """The raycast kernel at GN_SHAPE on `volume` from T_cw moved by 1° and
+    1 cm (gn_row's frame), with each march of RAYCAST_MARCHES: the depths
+    equal to the plain version's bit for bit, one launch a call. Returns
+    the row at the cell's march: the hold, each kernel's device time over
+    20 launches, the call's events time, the plain version's, and the
+    bound."""
+    from objective_slam_tpu_torch.models import tsdf
+    from objective_slam_tpu_torch.ops import raycast
+
+    T_wc = tsdf._invert_rigid(torch.from_numpy(moved_pose(T_cw)).to(dev))
+    holds = {}
+    for name, march in RAYCAST_MARCHES.items():
+        before = raycast.launches
+        got = tsdf.raycast_depth(volume, GN_INTR, T_wc, GN_SHAPE, *march)
+        want = tsdf._raycast_depth(volume, GN_INTR, T_wc, GN_SHAPE, *march,
+                                   32, 3)
+        sync(dev)
+        check(raycast.launches == before + 1,
+              f"one raycast launch a call ({raycast.launches - before})")
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        check(differ == 0, f"the raycast kernel, {name} march: {differ} "
+              f"depths differ from the plain version's")
+        holds[name] = {"march": list(march), "hits": int((want > 0).sum())}
+        HOLDS.append({"path": f"tsdf raycast 640x480 {name}",
+                      "kernel": "raycast", "max_abs_err": 0.0,
+                      "bitequal": True, **holds[name]})
+    march = RAYCAST_MARCHES["kinfu-512-vga"]
+
+    def kernel():
+        tsdf.raycast_depth(volume, GN_INTR, T_wc, GN_SHAPE, *march)
+
+    def plain():
+        tsdf._raycast_depth(volume, GN_INTR, T_wc, GN_SHAPE, *march, 32, 3)
+
+    kernel()
+    plain()
+    sync(dev)
+    t_plain = event_ms(plain, 3)
+    t_kernel = event_ms(kernel, 20)
+    t_plain += event_ms(plain, 3)
+    D, H, W = volume.dims
+    work_bytes = 8 * D * H * W + 8 * D * H * ((W + 31) // 32) + \
+        4 * GN_SHAPE[0] * GN_SHAPE[1]
+    b = bound(work_bytes, 0)
+    flags_ms = kernel_ms(kernel, "raycast_flags_kernel", 20)
+    mask_ms = kernel_ms(kernel, "raycast_mask_kernel", 20)
+    march_ms = kernel_ms(kernel, "raycast_march_kernel", 20)
+    ms = flags_ms + mask_ms + march_ms
+    return {"shape": list(GN_SHAPE), "dims": [D, H, W], "holds": holds,
+            "march": list(march), "flags_ms": flags_ms, "mask_ms": mask_ms,
+            "march_ms": march_ms,
+            "ms": ms, "event_ms": statistics.median(t_kernel),
+            "host_ms": statistics.median(host_ms(kernel, 10)),
+            "plain_ms": statistics.median(t_plain), "bytes": work_bytes,
+            "bound_ms": b[0], "bound_by": b[1], "share": b[0] / ms}
+
+
+def moved_pose(T_cw):
+    """T_cw (world→camera) moved by 1° about z and 1 cm along each axis:
+    the frame of the GN and raycast rows, float32."""
+    th, c = math.radians(1.0), math.cos(math.radians(1.0))
+    dT = np.eye(4, dtype=np.float32)
+    dT[:3, :3] = [[c, -math.sin(th), 0], [math.sin(th), c, 0], [0, 0, 1]]
+    dT[:3, 3] = 0.01
+    return dT @ np.asarray(T_cw, np.float32)
 
 
 def gn_row(dev, volume, T_cw):
@@ -1598,12 +1683,8 @@ def gn_row(dev, volume, T_cw):
     from objective_slam_tpu_torch.models import tsdf
     from objective_slam_tpu_torch.ops import _build, gn_track
 
-    th, c = math.radians(1.0), math.cos(math.radians(1.0))
-    dT = np.eye(4, dtype=np.float32)
-    dT[:3, :3] = [[c, -math.sin(th), 0], [math.sin(th), c, 0], [0, 0, 1]]
-    dT[:3, 3] = 0.01
     T_cw = np.asarray(T_cw, np.float32)
-    T_frame = torch.from_numpy(dT @ T_cw).to(dev)
+    T_frame = torch.from_numpy(moved_pose(T_cw)).to(dev)
     depth = tsdf.raycast_depth(volume, GN_INTR, tsdf._invert_rigid(T_frame),
                                GN_SHAPE)
     seen = []
@@ -2513,6 +2594,7 @@ def main() -> int:
 
     icp_shapes = {shape: icp_shape(shape) for shape in ICP_SHAPES}
     gn = tsdf_numbers["gn"]
+    ray = tsdf_numbers["raycast"]
 
     # Every comparison of a kernel with its plain version on a driven
     # path's own inputs; each raised on a difference.
@@ -2570,6 +2652,16 @@ def main() -> int:
         "bitequal": False, "ms": gn["ms"], "event_ms": gn["event_ms"],
         "plain_ms": gn["plain_ms"], "bound_ms": gn["bound_ms"],
         "bound_by": gn["bound_by"], "library_ms": None, "row": gn,
+    }, {
+        "name": "raycast", "route": "cuda",
+        "source": "objective_slam_tpu_torch/csrc/raycast.cu",
+        "replaces": "objective_slam_tpu/models/tsdf.py:raycast_depth",
+        "launches": launches_tsdf["raycast"],
+        "launches_by_path": by_path("raycast"),
+        "max_abs_err": 0.0, "bitequal": True, "ms": ray["ms"],
+        "event_ms": ray["event_ms"], "plain_ms": ray["plain_ms"],
+        "bound_ms": ray["bound_ms"], "bound_by": ray["bound_by"],
+        "library_ms": None, "row": ray,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

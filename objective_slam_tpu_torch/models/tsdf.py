@@ -40,7 +40,7 @@ from objective_slam_tpu_torch._common import as_tensor, default_device, \
     f32, to_numpy
 from objective_slam_tpu_torch.config import PPFConfig
 from objective_slam_tpu_torch.models import drost
-from objective_slam_tpu_torch.ops import _build, gn_track
+from objective_slam_tpu_torch.ops import _build, gn_track, raycast
 from objective_slam_tpu_torch.utils import pointcloud as pc, profiling
 
 # Float→int casts first clamp the float to this range: XLA saturates an
@@ -455,15 +455,57 @@ def raycast_depth(volume: TSDFVolume, intrinsics, T_wc, shape,
     crossing across the windows, in bracket order, is the depth. A window
     without a crossing is a graze of a nearer feature; the next bracket
     resumes behind it. The step dt = (t_far − t_near)/(n_steps − 1) must
-    stay below the truncation band. The (n_steps, h, w) stack of the coarse
-    march is kept whole. The span `tsdf.raycast` holds the call."""
+    stay below the truncation band. The span `tsdf.raycast` holds the
+    call: on a CUDA device the three launches of ``ops/raycast``
+    (csrc/raycast.cu; a sign mask of the pooled field in two passes, then
+    a march of one thread a pixel) inside the span `tsdf.raycast_kernel`,
+    elsewhere ``_raycast_depth``, the plain version, whose depths the
+    kernel's equal bit for bit."""
     with profiling.span("tsdf.raycast"):
+        if _build.uses_kernel(volume.device):
+            with profiling.span("tsdf.raycast_kernel"):
+                return _raycast_kernel(volume, intrinsics, T_wc, shape,
+                                       t_near, t_far, n_steps, fine_steps,
+                                       n_brackets)
         return _raycast_depth(volume, intrinsics, T_wc, shape, t_near,
                               t_far, n_steps, fine_steps, n_brackets)
 
 
+@functools.lru_cache(maxsize=8)
+def _march_tables(intrinsics, shape, t_near, t_far, n_steps: int,
+                  fine_steps: int, device):
+    """The raycast kernel's small inputs as `_raycast_depth` computes them:
+    the coarse parameters ts, the window offsets offs, and `_pixel_rays`'
+    x along a row and y along a column. They depend on these arguments
+    alone, so the last few sets stay on the device."""
+    h, w = shape
+    fx, fy, cx, cy = intrinsics
+    ts = _linspace(t_near, t_far, n_steps, device, fused=True)
+    dt = ts[1] - ts[0]
+    offs = _linspace(-dt, 9.0 * dt, fine_steps, device, fused=True)
+    ray_u = (torch.arange(w, dtype=torch.float32, device=device) - cx) / fx
+    ray_v = (torch.arange(h, dtype=torch.float32, device=device) - cy) / fy
+    return ts, offs, ray_u, ray_v
+
+
+def _raycast_kernel(volume, intrinsics, T_wc, shape, t_near, t_far, n_steps,
+                    fine_steps, n_brackets):
+    """`_raycast_depth` by the kernel of ops/raycast, on a CUDA device."""
+    dev = volume.device
+    tables = _march_tables(_cam_scalars(intrinsics),
+                           tuple(int(s) for s in shape), t_near, t_far,
+                           int(n_steps), int(fine_steps), dev)
+    return raycast.raycast_depth(
+        volume.tsdf.contiguous(), volume.weight.contiguous(),
+        volume.origin.contiguous(), as_tensor(T_wc, dev).contiguous(),
+        *tables, _inv(volume.voxel_size), f32(volume.truncation), n_brackets)
+
+
 def _raycast_depth(volume, intrinsics, T_wc, shape, t_near, t_far, n_steps,
                    fine_steps, n_brackets):
+    """raycast_depth's plain version on any device: the CPU path and the
+    twin of the kernel (ops/raycast). The (n_steps, h, w) stack of the
+    coarse march is kept whole."""
     dev = volume.device
     h, w = shape
     T = as_tensor(T_wc, dev)

@@ -33,7 +33,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # Each kernel's source name and the ops module that wraps it.
 KERNELS = {"block_tally": "block_tally", "fast_tally": "fast_tally",
-           "icp_refine": "icp", "gn_track": "gn_track"}
+           "icp_refine": "icp", "gn_track": "gn_track", "raycast": "raycast"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from objective_slam_tpu_torch.ops import _build, block_tally, fast_tally, \
-    gn_track, icp
+    gn_track, icp, raycast
 
 
 @pytest.fixture
@@ -67,11 +67,11 @@ def test_both_kernels_include_the_row_header():
 
 
 def test_the_icp_kernel_is_built_with_the_others():
-    """The ICP kernel and the KinFu Gauss-Newton kernel are built beside
-    K1 and K2, each launched by its own ops module."""
+    """The ICP kernel and the KinFu Gauss-Newton and raycast kernels are
+    built beside K1 and K2, each launched by its own ops module."""
     assert {name: _build.wrapper(name) for name in _build.KERNELS} == {
         "block_tally": block_tally, "fast_tally": fast_tally,
-        "icp_refine": icp, "gn_track": gn_track}
+        "icp_refine": icp, "gn_track": gn_track, "raycast": raycast}
 
 
 @pytest.mark.parametrize("name", _build.KERNELS)
@@ -135,6 +135,13 @@ def _gn_call():
                           5)
 
 
+def _raycast_call():
+    vol = torch.zeros(2, 3, 40)
+    raycast.raycast_depth(vol, vol.clone(), torch.zeros(3), torch.eye(4),
+                          torch.linspace(0.1, 1.0, 8), torch.zeros(4),
+                          torch.zeros(5), torch.zeros(6), 20.0, 0.15, 3)
+
+
 # Each kernel's wrapper call, and the message it raises when no block or
 # cluster fits the card.
 LAUNCHES = {
@@ -144,6 +151,7 @@ LAUNCHES = {
                    "of shared memory each fits the card"),
     "icp_refine": (_icp_call, "icp_refine: no block fits an SM"),
     "gn_track": (_gn_call, "gn_track: no block fits an SM"),
+    "raycast": (_raycast_call, "raycast: no block fits an SM"),
 }
 
 

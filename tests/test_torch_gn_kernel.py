@@ -280,8 +280,8 @@ def test_path_rule_and_spans(cpu_scene, cpu_start, cpu_tracked, monkeypatch,
     """The kernel for maps on a CUDA device, inside `tsdf.gn_kernel`
     within `tsdf.gauss_newton`; the plain loop otherwise, with no
     `tsdf.gn_kernel` span. (The CUDA path runs here with the device rule
-    forced and the launch replaced by the plain loop.) Both paths give
-    track_frame the same result."""
+    forced, the launch replaced by the plain loop and the raycast's by
+    the plain raycast.) Both paths give track_frame the same result."""
     calls = []
     plain = tsdf._gauss_newton_plain
 
@@ -292,6 +292,7 @@ def test_path_rule_and_spans(cpu_scene, cpu_start, cpu_tracked, monkeypatch,
     monkeypatch.setattr(gn_track, "gauss_newton", kernel)
     if device == "cuda":
         monkeypatch.setattr(_build, "uses_kernel", lambda d: True)
+        monkeypatch.setattr(tsdf, "_raycast_kernel", tsdf._raycast_depth)
     assert _build.uses_kernel(torch.device("cpu")) == (device == "cuda")
     out = []
     names = _spans_of(lambda: out.append(tsdf.track_frame(

@@ -1,8 +1,9 @@
 """The port must run where JAX is absent (the GPU machine has none):
 importing it loads neither jax nor the JAX package, and no module of it,
 chip_smoke.py, its tools (tools/*_torch.py) or the card's test files
-(tests/test_torch_icp_kernel.py, tests/test_torch_gn_kernel.py) names
-either (or bench.py) in an import."""
+(tests/test_torch_icp_kernel.py, tests/test_torch_gn_kernel.py,
+tests/test_torch_raycast_kernel.py) names either (or bench.py) in an
+import."""
 
 import ast
 import pathlib
@@ -60,7 +61,8 @@ def test_import_leaves_jax_unloaded():
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
                          [ROOT / "chip_smoke.py",
                           ROOT / "tests" / "test_torch_icp_kernel.py",
-                          ROOT / "tests" / "test_torch_gn_kernel.py"] +
+                          ROOT / "tests" / "test_torch_gn_kernel.py",
+                          ROOT / "tests" / "test_torch_raycast_kernel.py"] +
                          sorted((ROOT / "tools").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
