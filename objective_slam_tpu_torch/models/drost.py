@@ -23,6 +23,12 @@ Stages are ``profiling.span``s, recorded while a torch profiler runs:
 ``drost.core`` (one match at fixed capacities) with ``drost.keys``,
 ``drost.vote``, ``drost.topk`` and ``drost.cluster`` inside, and
 ``drost.sync`` around each host read of a device value.
+
+A scene of more than ``PAIR_BUDGET`` reference-row × point pairs (the
+fused surface of a 512³ volume at a fine d_dist) is keyed, counted and
+voted in blocks of reference rows inside ``drost.vote``, each block sized
+by its own exact count; the accumulator, and so every result, equals one
+pass's.
 """
 
 from __future__ import annotations
@@ -149,6 +155,23 @@ def _scene_inputs(model, scene_points, scene_normals, ref_point_df):
     return pts, nrm, ref_idx
 
 
+# Scene pairs (reference rows × scene points) keyed at once. The keys, α
+# and their temporaries take about 100 B a pair: 2²⁶ pairs about 7 GB,
+# while a scene of 10⁵ points (2·10⁹ pairs at ref_point_df 5) cannot be
+# keyed in one pass on one card. Above the budget the count and vote
+# passes take blocks of reference rows; a row's counts and accumulator
+# row are its own, so the results equal one pass's. At or below it, one
+# pass, as the JAX package makes.
+PAIR_BUDGET = 1 << 26
+
+
+def _row_blocks(n_ref: int, n_s: int) -> list[tuple[int, int]]:
+    """[start, end) blocks of reference rows, each within PAIR_BUDGET
+    pairs (at least one row)."""
+    step = max(1, PAIR_BUDGET // max(int(n_s), 1))
+    return [(a, min(a + step, n_ref)) for a in range(0, n_ref, step)]
+
+
 def _scene_keys(model: ModelDescription, scene_points, scene_normals,
                 ref_idx, d_angle):
     """Scene pair keys and α_s in the model's key space: packed keys, or
@@ -181,15 +204,23 @@ def _match_core(model: ModelDescription, scene_points, scene_normals, *,
         with span("drost.keys"):
             scene_points, scene_normals, ref_idx = _scene_inputs(
                 model, scene_points, scene_normals, ref_point_df)
-            keys, alpha_s = _scene_keys(model, scene_points, scene_normals,
-                                        ref_idx, config.d_angle)
+            blocks = _vote_blocks(config, ref_idx.shape[0],
+                                  scene_points.shape[0])
+            if len(blocks) == 1:
+                keys, alpha_s = _scene_keys(model, scene_points,
+                                            scene_normals, ref_idx,
+                                            config.d_angle)
             s_ref_pts = scene_points[ref_idx]
             s_beta, s_gamma = tr.canonical_angles(s_ref_pts,
                                                   scene_normals[ref_idx])
 
         with span("drost.vote"):
-            votes = _cast_votes(model, config, keys, alpha_s, vote_cap,
-                                seg_cap, runs_cap)
+            if len(blocks) == 1:
+                votes = _cast_votes(model, config, keys, alpha_s, vote_cap,
+                                    seg_cap, runs_cap)
+            else:
+                votes = _cast_votes_blocks(model, config, scene_points,
+                                           scene_normals, ref_idx, blocks)
         with span("drost.topk"):
             top = voting.top_votes(votes.accumulator,
                                    config.vote_count_threshold,
@@ -239,6 +270,58 @@ def _cast_votes(model: ModelDescription, config: PPFConfig, keys, alpha_s,
             config.d_angle, vote_cap)
     return voting.cast_votes(keys, alpha_s, model.table, model.n_points,
                              config.d_angle, vote_cap)
+
+
+def _vote_blocks(config: PPFConfig, n_ref: int, n_s: int):
+    """The reference-row blocks of the vote pass: `_row_blocks`, or one
+    block for the correlation engine, which sizes its own runs."""
+    if config.engine == "correlation":
+        return [(0, n_ref)]
+    return _row_blocks(n_ref, n_s)
+
+
+def _cast_votes_blocks(model: ModelDescription, config: PPFConfig,
+                       scene_points, scene_normals, ref_idx,
+                       blocks) -> voting.VoteResult:
+    """The vote pass of a scene over PAIR_BUDGET, one block of reference
+    rows at a time: the block's keys, its exact count and capacities (a
+    host read), its votes; the blocks' accumulator rows stacked in order.
+    Each block's capacities hold its count, so no vote is dropped;
+    num_votes is int64, since the blocks' sum can pass int32."""
+    accs, total, overflowed = [], None, None
+    for a, b in blocks:
+        keys, alpha_s = _scene_keys(model, scene_points, scene_normals,
+                                    ref_idx[a:b], config.d_angle)
+        rows = _row_counts(model, keys)
+        with span("drost.sync"):
+            sums = torch.stack([torch.sum(r, dtype=torch.int64)
+                                for r in rows]).tolist()
+        vote_cap, seg_cap = _caps(model, config, *sums, b - a)
+        v = _cast_votes(model, config, keys, alpha_s, vote_cap, seg_cap)
+        del keys, alpha_s
+        accs.append(v.accumulator)
+        n = v.num_votes.to(torch.int64)
+        total = n if total is None else total + n
+        overflowed = v.overflowed if overflowed is None \
+            else overflowed | v.overflowed
+    return voting.VoteResult(accumulator=torch.cat(accs), num_votes=total,
+                             overflowed=overflowed)
+
+
+def _caps(model: ModelDescription, config: PPFConfig, total: int,
+          total_rows: int, n_segs: int, n_ref: int):
+    """(vote_cap, seg_cap) from the exact count of `n_ref` reference rows:
+    the block engine needs the row-padded votes plus one chunk per
+    reference row, and seg_cap the nonzero segments; the fallback engine
+    needs the votes plus TALLY_CHUNK slots per reference row."""
+    seg_cap = None
+    if config.engine == "fast":
+        if model.fast_tables.block is not None:
+            total = (total_rows + voting_block.CHUNK_ROWS * n_ref) * 128
+            seg_cap = _next_cap(max(n_segs, 1024))
+        else:
+            total += voting_fast.TALLY_CHUNK * n_ref
+    return _next_cap(total), seg_cap
 
 
 def _pick_winner(model: ModelDescription, config: PPFConfig, poses, weighted,
@@ -303,7 +386,17 @@ def _count_votes_rows(model, scene_points, scene_normals, ref_point_df,
     caller."""
     pts, nrm, ref_idx = _scene_inputs(model, scene_points, scene_normals,
                                       ref_point_df)
-    keys, _ = _scene_keys(model, pts, nrm, ref_idx, d_angle)
+    parts = [_row_counts(model, _scene_keys(model, pts, nrm, ref_idx[a:b],
+                                            d_angle)[0])
+             for a, b in _row_blocks(ref_idx.shape[0], pts.shape[0])]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _row_counts(model, keys):
+    """(votes, block-engine vote rows, nonzero segments) of each row of
+    scene keys, int32."""
     valid = keys != ppf_ops.INVALID_KEY
     safe = torch.where(valid, keys, 0).to(torch.int64)
     cnt = torch.where(valid, model.table.counts[safe], 0)
@@ -465,19 +558,14 @@ def _match_sized_caps(model: ModelDescription, scene_points, scene_normals,
             "engine='fast' requires fast_tables; build the model "
             "description with a fast config")
     seg_cap = None
+    n_s = int(scene_points.shape[0])
+    n_ref = (n_s + config.ref_point_df - 1) // config.ref_point_df
+    if vote_cap is None and len(_vote_blocks(config, n_ref, n_s)) > 1:
+        vote_cap = 0        # each block of the vote pass sizes its own
     if vote_cap is None:
-        total, total_rows, n_segs = _count_votes(
+        vote_cap, seg_cap = _caps(model, config, *_count_votes(
             model, scene_points, scene_normals, config.ref_point_df,
-            config.d_angle)
-        if config.engine == "fast":
-            n_s = int(scene_points.shape[0])
-            n_ref = (n_s + config.ref_point_df - 1) // config.ref_point_df
-            if model.fast_tables.block is not None:
-                total = (total_rows + voting_block.CHUNK_ROWS * n_ref) * 128
-                seg_cap = _next_cap(max(n_segs, 1024))
-            else:
-                total += voting_fast.TALLY_CHUNK * n_ref
-        vote_cap = _next_cap(total)
+            config.d_angle), n_ref)
     res = _match_core(model, scene_points, scene_normals,
                       ref_point_df=config.ref_point_df,
                       vote_cap=int(vote_cap), config=config,

@@ -807,6 +807,21 @@ def surface_occupancy(volume: TSDFVolume, iso_band: float = 0.5):
     return torch.sum(_near_surface(volume, iso_band), dtype=torch.int32)
 
 
+def _central_gradient(t, idx, axis: int):
+    """torch.gradient(t, dim=axis) (unit spacing, edge order 1) read at
+    the flat voxel indices `idx` only: (t[i+1] − t[i−1]) / 2 inside the
+    grid, the one-sided difference on its faces; the same float32 values,
+    without a volume-sized result per axis."""
+    n = t.shape[axis]
+    stride = int(np.prod(t.shape[axis + 1:]))
+    i = (idx // stride) % n
+    hi = torch.clamp(i + 1, max=n - 1)
+    lo = torch.clamp(i - 1, min=0)
+    flat = t.reshape(-1)
+    diff = flat[idx + (hi - i) * stride] - flat[idx + (lo - i) * stride]
+    return torch.where((hi - lo) == 2, diff / 2.0, diff)
+
+
 def extract_surface(volume: TSDFVolume, capacity: int = 4096,
                     iso_band: float = 0.5, normal_k: int = 12) -> Surface:
     """Surface voxels = observed cells with |tsdf| < iso_band·voxel_size
@@ -816,22 +831,31 @@ def extract_surface(volume: TSDFVolume, capacity: int = 4096,
     exact k-NN up to 8,192 rows, the moment-grid estimator above (leaf
     2·voxel_size, pad rows parked in a corner no real point reaches) —
     oriented by the sign of the central-difference TSDF gradient. Pad rows
-    sit at origin − 1e7 with zero normals and can never vote."""
-    D, H, W = volume.dims
+    sit at origin − 1e7 with zero normals and can never vote.
+
+    Only the near-surface voxels are sorted and only they are read for the
+    gradient, so the work and the memory follow the surface, not the
+    volume (a 512³ volume holds 134 M voxels and a few 10⁵ near ones):
+    the same rows, in the same order, as a stable sort of the whole
+    volume's scores."""
     t = volume.tsdf
-    near = _near_surface(volume, iso_band)
-    score = torch.where(near, -torch.abs(t), -torch.inf).reshape(-1)
-    vals, idx = torch.sort(score, descending=True, stable=True)
-    vals, idx = vals[:capacity], idx[:capacity]
-    valid = torch.isfinite(vals)
-    n_near = torch.sum(near, dtype=torch.int32)
+    near = _near_surface(volume, iso_band).reshape(-1)
+    cand = torch.nonzero(near).reshape(-1)          # ascending voxel order
+    vals, order = torch.sort(-torch.abs(t.reshape(-1)[cand]),
+                             descending=True, stable=True)
+    n_near = cand.shape[0]
+    keep = min(n_near, capacity)
+    idx = torch.zeros(capacity, dtype=torch.int64, device=t.device)
+    idx[:keep] = cand[order[:keep]]
+    valid = torch.arange(capacity, device=t.device) < keep
+    D, H, W = volume.dims
     i, j, k = idx // (H * W), (idx // W) % H, idx % W
     centers = torch.stack(_center_coords(volume, i, j, k), dim=-1)
     far = volume.origin - 1.0e7
     pts = torch.where(valid[:, None], centers, far)
 
     # Central-difference TSDF gradient at the selected voxels.
-    g = [torch.gradient(t, dim=a)[0].reshape(-1)[idx] for a in range(3)]
+    g = [_central_gradient(t, idx, a) for a in range(3)]
     gn = torch.clamp(_norm3(*g), min=f32(1e-9))
     grad_n = torch.where(valid[:, None], torch.stack([c / gn for c in g], -1),
                          0.0)
@@ -855,8 +879,21 @@ def extract_surface(volume: TSDFVolume, capacity: int = 4096,
     flip = torch.sum(knn_n * grad_n, dim=-1) < 0
     nrm = torch.where(valid[:, None],
                       torch.where(flip[:, None], -knn_n, knn_n), 0.0)
-    return Surface(points=pts, normals=nrm, valid=valid, count=n_near,
-                   overflowed=n_near > capacity)
+    count = torch.tensor(n_near, dtype=torch.int32, device=t.device)
+    return Surface(points=pts, normals=nrm, valid=valid, count=count,
+                   overflowed=count > capacity)
+
+
+class Recognition(NamedTuple):
+    """The counters of one `StreamingRecognizer.recognize` call, and the
+    surface it matched on, on the host."""
+    occupancy: int          # near-surface voxels (the exact count pass)
+    capacity: int           # rows extracted (occupancy's bucket, or fixed)
+    scene_points: dict      # model name -> scene points it was matched on
+    #                         (after the downsample to its d_dist)
+    points: np.ndarray      # (occupancy ∧ capacity, 3) the surface's valid
+    normals: np.ndarray     # rows, the ICP target of every model
+    poses: dict             # model name -> (4, 4) float32 refined pose
 
 
 class StreamingRecognizer:
@@ -878,6 +915,7 @@ class StreamingRecognizer:
         self.last_track: TrackResult | None = None
         self.tracking_lost = False  # the last track_depth_frame failed the
         #                             lost-tracking gate (not fused)
+        self.last_recognition: Recognition | None = None
 
     def register_model(self, name: str, desc: drost.ModelDescription):
         self.models[name] = desc
@@ -952,21 +990,34 @@ class StreamingRecognizer:
     def recognize(self, names=None) -> dict[str, drost.MatchResult]:
         """drost.match of each registered model (all by default) against
         the fused surface, re-downsampled to the model's d_dist (the
-        matcher's scene sampling); ICP refines against the full surface."""
-        surf = self.surface()
-        # Drop the far pad rows before voxelizing: a bbox spanning them
-        # overflows the int32 cell keys.
-        ok = to_numpy(surf.valid)
-        pts = to_numpy(surf.points)[ok]
-        nrm = to_numpy(surf.normals)[ok]
-        out = {}
-        for name in (names or self.models):
-            desc = self.models[name]
-            if float(desc.d_dist) > 1.5 * self.volume.voxel_size:
-                vp, vn = pc.voxel_downsample_np(pts, nrm,
-                                                float(desc.d_dist))
-            else:
-                vp, vn = pts, nrm
-            out[name] = drost.match(desc, vp, vn, self.config,
-                                    icp_points=pts, icp_normals=nrm)
+        matcher's scene sampling); ICP refines against the full surface.
+
+        The span `tsdf.recognize` holds the whole call, to the last
+        model's refined pose on the host; `tsdf.extract` inside it holds
+        the occupancy count and its host read, the extraction with its
+        normals and the surface's copy to the host. `last_recognition`
+        keeps the call's counters, its host surface and the poses."""
+        with profiling.span("tsdf.recognize"):
+            with profiling.span("tsdf.extract"):
+                surf = self.surface()
+                # Drop the far pad rows before voxelizing: a bbox spanning
+                # them overflows the int32 cell keys.
+                ok = to_numpy(surf.valid)
+                pts = to_numpy(surf.points)[ok]
+                nrm = to_numpy(surf.normals)[ok]
+                occupancy = int(surf.count)
+            out, n_scene = {}, {}
+            for name in (names or self.models):
+                desc = self.models[name]
+                if float(desc.d_dist) > 1.5 * self.volume.voxel_size:
+                    vp, vn = pc.voxel_downsample_np(pts, nrm,
+                                                    float(desc.d_dist))
+                else:
+                    vp, vn = pts, nrm
+                n_scene[name] = int(vp.shape[0])
+                out[name] = drost.match(desc, vp, vn, self.config,
+                                        icp_points=pts, icp_normals=nrm)
+            poses = {name: to_numpy(res.pose) for name, res in out.items()}
+        self.last_recognition = Recognition(occupancy, int(ok.shape[0]),
+                                            n_scene, pts, nrm, poses)
         return out

@@ -2,8 +2,9 @@
 importing it loads neither jax nor the JAX package, and no module of it,
 chip_smoke.py, its tools (tools/*_torch.py) or the card's test files
 (tests/test_torch_icp_kernel.py, tests/test_torch_gn_kernel.py,
-tests/test_torch_raycast_kernel.py) names either (or bench.py) in an
-import."""
+tests/test_torch_raycast_kernel.py) and the recognition cell's benchmark
+files (its kind, its surface reference, its control script) names either
+(or bench.py) in an import."""
 
 import ast
 import pathlib
@@ -62,7 +63,11 @@ def test_import_leaves_jax_unloaded():
                          [ROOT / "chip_smoke.py",
                           ROOT / "tests" / "test_torch_icp_kernel.py",
                           ROOT / "tests" / "test_torch_gn_kernel.py",
-                          ROOT / "tests" / "test_torch_raycast_kernel.py"] +
+                          ROOT / "tests" / "test_torch_raycast_kernel.py",
+                          ROOT / "benchmark" / "frozen" /
+                          "surface_reference.py",
+                          ROOT / "benchmark" / "kinds" / "kinfu_recognize.py",
+                          ROOT / "benchmark" / "slampp_control.py"] +
                          sorted((ROOT / "tools").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
